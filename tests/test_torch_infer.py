@@ -1,0 +1,178 @@
+"""The port's serving entry points (Predictor, run_depthmaps) vs the JAX
+package's, on the CPU, plus the port's isolation from JAX."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from wildmvs.infer import Predictor as JaxPredictor
+from wildmvs.models.mvsnet import MVSNet as JaxMVSNet
+from wildmvs.pipeline.depthmaps import get_mask_invalid as jax_mask_invalid
+from wildmvs.train.checkpoint import save_params_npz
+from wildmvs_torch.infer import Predictor
+from wildmvs_torch.models import build_model
+from wildmvs_torch.pipeline.depthmaps import (eval_model_kwargs,
+                                              get_mask_invalid, run_depthmaps)
+from tests.test_torch_mvsnet import jax_variables, scene
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module")
+def variance_weights():
+    params, stats = jax_variables()
+    return {k: v for k, v in params.items() if k != "temp"}, stats
+
+
+@pytest.fixture
+def npz_checkpoint(tmp_path, variance_weights):
+    params, stats = variance_weights
+    return save_params_npz(tmp_path / "mvsnet.npz", params, stats,
+                           architecture="mvsnet")
+
+
+def unbatched(seed=0):
+    imgs, K, R, t, dmin, dmax = scene(seed)
+    return imgs[0], K[0], R[0], t[0], dmin[0], dmax[0]
+
+
+def test_predictor_matches_jax_predictor(npz_checkpoint, variance_weights,
+                                         monkeypatch):
+    params, stats = variance_weights
+    # the JAX Predictor initializes its own weights; hand it these instead
+    # (its eager init would take a minute on this host)
+    variables = {"params": params, "batch_stats": stats}
+    monkeypatch.setattr(JaxMVSNet, "init",
+                        lambda self, *a, **k: variables)
+    jpred = JaxPredictor(architecture="mvsnet", bf16=False)
+    pred = Predictor(npz_checkpoint, device="cpu", bf16=False)
+    assert pred.architecture == "mvsnet" and pred.downscale == 4
+    args = unbatched()
+    want = jpred(*args)
+    got = pred(*args)
+    assert got["depth"].dtype == np.float32
+    assert got["depth"].shape == want["depth"].shape == (16, 24)
+    # the same f32 forward as tests/test_torch_mvsnet.py
+    np.testing.assert_allclose(got["depth"], want["depth"], atol=5e-3)
+    close = np.abs(got["confidence"] - want["confidence"]) < 1e-3
+    assert close.mean() > 0.99
+
+
+def test_predictor_crops_and_batches(npz_checkpoint):
+    pred = Predictor(npz_checkpoint, device="cpu", bf16=False)
+    imgs, K, R, t, dmin, dmax = unbatched()
+    base = pred(imgs, K, R, t, dmin, dmax)
+    # a non-/32 input is cropped from the top-left (K unchanged)
+    padded = np.pad(imgs, ((0, 0), (0, 7), (0, 13), (0, 0)))
+    cropped = pred(padded, K, R, t, dmin, dmax)
+    np.testing.assert_array_equal(cropped["depth"], base["depth"])
+    # batched input, scalar depth range, and a list of per-view arrays
+    two = pred(np.stack([imgs, imgs]), np.stack([K, K]), np.stack([R, R]),
+               np.stack([t, t]), 5.0, 10.0)
+    assert two["depth"].shape == (2, 16, 24)
+    np.testing.assert_allclose(two["depth"][1], base["depth"], atol=1e-5)
+    listed = pred(list(imgs), K, R, t, dmin, dmax)
+    np.testing.assert_array_equal(listed["depth"], base["depth"])
+    with pytest.raises(ValueError, match="too small"):
+        pred(imgs[:, :16, :16], K, R, t, dmin, dmax)
+
+
+def test_predictor_ragged_views(npz_checkpoint):
+    pred = Predictor(npz_checkpoint, device="cpu", bf16=False)
+    imgs, K, R, t, dmin, dmax = unbatched()
+    views = [imgs[0], imgs[1, :, :70], imgs[2, :40]]     # cropped to /32
+    out = pred(views, K, R, t, dmin, dmax)
+    assert out["depth"].shape == (16, 24)
+    assert np.isfinite(out["depth"]).all()
+
+
+def test_run_depthmaps_writes_npz_and_sentinel(tmp_path, npz_checkpoint):
+    pred = Predictor(npz_checkpoint, device="cpu", bf16=False)
+    samples = []
+    for i in range(2):
+        imgs, K, R, t, dmin, dmax = unbatched(seed=i)
+        samples.append({"imgs": imgs, "K": K, "R": R, "t": t,
+                        "depth_min": dmin, "depth_max": dmax,
+                        "filename": f"scan1/{i:08d}"})
+    out_dir = tmp_path / "depthmaps"
+    run_depthmaps(samples, pred.model, out_dir)
+    assert (out_dir / "finished.txt").exists()
+    for i, s in enumerate(samples):
+        with np.load(out_dir / f"scan1_{i:08d}_out.npz") as z:
+            assert sorted(z.files) == ["depthmap", "probability"]
+            want = pred(*(s[k] for k in ("imgs", "K", "R", "t", "depth_min",
+                                         "depth_max")))
+            np.testing.assert_array_equal(z["depthmap"], want["depth"])
+            np.testing.assert_array_equal(z["probability"],
+                                          want["confidence"])
+            prob = z["probability"]
+    # the sentinel makes a second run a no-op
+    (out_dir / f"scan1_{0:08d}_out.npz").unlink()
+    run_depthmaps(samples, pred.model, out_dir)
+    assert not (out_dir / f"scan1_{0:08d}_out.npz").exists()
+    geo = np.random.default_rng(0).random(prob.shape) > 0.3
+    for args in ((prob,), (prob, 0.3, geo), (np.stack([prob, 1 - prob]),)):
+        np.testing.assert_array_equal(get_mask_invalid(*args),
+                                      jax_mask_invalid(*args))
+
+
+def test_checkpoint_formats(tmp_path, variance_weights):
+    params, stats = variance_weights
+    model = build_model("mvsnet", device="cpu", seed=1)
+    ckpt = tmp_path / "model_000001.ckpt"
+    sd = {f"module.{k}": v for k, v in model.state_dict().items()}
+    torch.save({"model": sd, "architecture": "mvsnet"}, ckpt)
+    pred = Predictor(ckpt, device="cpu", bf16=False)
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(pred.model.state_dict()[k], v, rtol=0,
+                                   atol=0)
+    with pytest.raises(NotImplementedError, match="orbax"):
+        Predictor(tmp_path, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eval_model_kwargs("vis_mvsnet")
+    with pytest.raises(ValueError, match="architecture"):
+        Predictor(device="cpu")
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Predictor(architecture="mvsnet")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model("mvsnet")
+    assert Predictor(architecture="mvsnet-s", device="cpu").model.agg \
+        == "softmin"
+
+
+def test_port_imports_neither_jax_nor_wildmvs():
+    code = (
+        "import importlib.util, pkgutil, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['wildmvs'] = None\n"
+        "import wildmvs_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    wildmvs_torch.__path__, 'wildmvs_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke',\n"
+        "                                              'chip_smoke.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'flax', 'wildmvs')\n"
+        "       and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n")
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 15

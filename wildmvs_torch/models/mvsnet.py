@@ -1,0 +1,235 @@
+"""MVSNet: single-scale plane sweep with variance or softmin aggregation.
+
+Counterpart of wildmvs/models/mvsnet.py:35-322 (reference
+models/MVSNet/model.py), eval forward:
+  FeatureNet: 7 conv2d (8 -> 16 -> 32 channels, two stride-2) + a final conv
+    -> 1/4-resolution 32-channel features, one batched call over all views
+  cost volume over `num_depth` hypotheses from the reference view's own
+    range, aggregated across views by variance or softmin
+  CostRegNet: 3D U-Net (8/16/32/64 channels, three stride-2 levels,
+    transposed-conv up, additive skips c4, c2, c0)
+  softmax over depth -> soft-argmin depth + 4-tap photometric confidence
+
+Cost-volume backends (`sweep_method`):
+  "gather"  the plain exact f32 gather (ops/plane_sweep.py);
+  "warp"    the per-view `sweep_warp` kernel, aggregation in torch (the
+            counterpart of JAX _cost_volume_mosaic_v1);
+  "fused"   the `fused_cost_volume` kernel, one launch per forward;
+  "auto"    "fused" for bf16 features on the card, else "gather" (f32
+            features are not what the kernels take; the CPU runs the exact
+            path);
+  "rect"    not ported yet (ROADMAP Queue 1, ops/rect_sweep.py).
+Views of different sizes go through "warp" where "fused" was chosen: the
+warp kernel takes any source size, one launch per source view.
+
+bf16 (`dtype=torch.bfloat16`): convolution weights are cast once, BatchNorm
+stays f32 and returns bf16, as flax's per-layer `dtype` does; geometry
+(projections, hypotheses, sampling coordinates) stays f32. The softmax and
+regression run in f32 (the JAX package takes its softmax in bf16).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..geometry.projective import build_proj_matrices, scale_K
+from ..nn.blocks import (ConvBnReLU, ConvTransposeBnReLU, cast_convs,
+                         init_weights)
+from ..ops.plane_sweep import plane_sweep_warp
+from ..ops.sweep_kernels import fused_cost_volume, mvsnet_planes, sweep_warp
+from ..ops.volumes import (depth_regression, photometric_confidence,
+                           softmin_cost_volume, variance_cost_volume)
+from .api import register_model, view_list
+
+SWEEP_METHODS = ("auto", "gather", "warp", "fused", "rect")
+
+
+class FeatureNet(nn.Module):
+    """8-8 / 16-16-16 / 32-32 conv stack: [M, H, W, 3] -> [M, H/4, W/4, 32]
+    channels-last (reference model.py:21-41)."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv0 = ConvBnReLU(3, 8, 3, 1, 1)
+        self.conv1 = ConvBnReLU(8, 8, 3, 1, 1)
+        self.conv2 = ConvBnReLU(8, 16, 5, 2, 2)
+        self.conv3 = ConvBnReLU(16, 16, 3, 1, 1)
+        self.conv4 = ConvBnReLU(16, 16, 3, 1, 1)
+        self.conv5 = ConvBnReLU(16, 32, 5, 2, 2)
+        self.conv6 = ConvBnReLU(32, 32, 3, 1, 1)
+        self.feature = nn.Conv2d(32, 32, 3, 1, 1, bias=True)
+
+    def forward(self, x):
+        # a channels-last tensor seen as NCHW: cuDNN keeps that memory format
+        x = x.permute(0, 3, 1, 2).to(self.feature.weight.dtype)
+        for i in range(7):
+            x = getattr(self, f"conv{i}")(x)
+        return self.feature(x).permute(0, 2, 3, 1).contiguous()
+
+
+class CostRegNet(nn.Module):
+    """3D U-Net regularizer, [B, D, H, W, C] -> [B, D, H, W, 1]
+    (reference model.py:43-84)."""
+
+    def __init__(self, in_channels: int = 32):
+        super().__init__()
+        self.conv0 = ConvBnReLU(in_channels, 8, dim=3)
+        self.conv1 = ConvBnReLU(8, 16, stride=2, dim=3)
+        self.conv2 = ConvBnReLU(16, 16, dim=3)
+        self.conv3 = ConvBnReLU(16, 32, stride=2, dim=3)
+        self.conv4 = ConvBnReLU(32, 32, dim=3)
+        self.conv5 = ConvBnReLU(32, 64, stride=2, dim=3)
+        self.conv6 = ConvBnReLU(64, 64, dim=3)
+        self.conv7 = ConvTransposeBnReLU(64, 32)
+        self.conv9 = ConvTransposeBnReLU(32, 16)
+        self.conv11 = ConvTransposeBnReLU(16, 8)
+        self.prob = nn.Conv3d(8, 1, 3, 1, 1, bias=True)
+
+    def forward(self, x):
+        # [B, D, H, W, C] memory seen as NCDHW is channels_last_3d
+        x = x.permute(0, 4, 1, 2, 3).to(self.prob.weight.dtype)
+        c0 = self.conv0(x)
+        c2 = self.conv2(self.conv1(c0))
+        c4 = self.conv4(self.conv3(c2))
+        x = self.conv6(self.conv5(c4))
+        x = c4 + self.conv7(x)
+        x = c2 + self.conv9(x)
+        x = c0 + self.conv11(x)
+        return self.prob(x).permute(0, 2, 3, 4, 1)
+
+
+@register_model("mvsnet")
+class MVSNet(nn.Module):
+    """MVSNet eval forward under the uniform model contract (models/api.py).
+
+    Args:
+      aggregation: "variance" | "softmin", optionally prefixed "norm" (unit
+        L2-normalized features).
+      num_depth: number of depth hypotheses.
+      sweep_method: see the module docstring.
+      dtype: torch.float32 or torch.bfloat16 compute for the networks.
+      seed: seed of the random initial weights.
+    """
+
+    def __init__(self, aggregation: str = "variance", num_depth: int = 192,
+                 sweep_method: str = "auto", dtype=torch.float32,
+                 seed: int = 0):
+        super().__init__()
+        agg = aggregation.removeprefix("norm").lstrip("-_") or aggregation
+        if agg not in ("variance", "softmin"):
+            raise NotImplementedError(f"aggregation: {aggregation}")
+        if sweep_method not in SWEEP_METHODS:
+            raise ValueError(f"sweep_method {sweep_method!r} not in "
+                             f"{SWEEP_METHODS}")
+        self.aggregation = aggregation
+        self.agg = agg
+        self.num_depth = num_depth
+        self.sweep_method = sweep_method
+        self.feature = FeatureNet()
+        self.cost_regularization = CostRegNet()
+        if agg == "softmin":
+            self.temp = nn.Parameter(torch.ones(1))
+        init_weights(self, torch.Generator().manual_seed(seed))
+        cast_convs(self, dtype)
+
+    def resolve_sweep(self, feats_dtype: torch.dtype, device: torch.device,
+                      ragged: bool) -> str:
+        """The cost-volume backend this forward takes."""
+        method = self.sweep_method
+        if method == "auto":
+            method = ("fused" if device.type == "cuda"
+                      and feats_dtype == torch.bfloat16 else "gather")
+        if method == "fused" and ragged:
+            method = "warp"
+        if method == "rect":
+            raise NotImplementedError(
+                "sweep_method='rect' is not ported yet (ROADMAP Queue 1: "
+                "ops/rect_sweep.py)")
+        return method
+
+    def forward(self, imgs, K, R, t, depth_min, depth_max,
+                reference_frame: int = 0):
+        if self.training:
+            raise NotImplementedError(
+                "the port has the eval forward only; MVSNet training is "
+                "ROADMAP Queue 1 #8 (call model.eval())")
+        views, ragged = view_list(imgs)
+        n = len(views)
+        b = views[0].shape[0]
+        for v in views:
+            vh, vw = v.shape[1:3]
+            if vh % 32 or vw % 32:
+                raise ValueError(
+                    f"MVSNet input images must be /32 multiples (the 3D "
+                    f"UNet's three stride-2 levels at 1/4 feature res), got "
+                    f"{vh}x{vw}")
+
+        # projections at 1/4 feature resolution, f32
+        proj = build_proj_matrices(scale_K(K.float(), 0.25), R.float(),
+                                   t.float())                 # [B, N, 4, 4]
+        steps = torch.arange(self.num_depth, dtype=torch.float32,
+                             device=proj.device)
+        interval = (depth_max - depth_min).float() / (self.num_depth - 1)
+        depth_values = (depth_min.float()[..., None]
+                        + interval[..., None] * steps)       # [B, N, D]
+
+        if ragged:
+            feats_l = [self.feature(v) for v in views]
+        else:
+            stacked = imgs if torch.is_tensor(imgs) else torch.stack(views, 1)
+            h, w = stacked.shape[2:4]
+            feats = self.feature(stacked.reshape(b * n, h, w, 3))
+            feats = feats.reshape((b, n) + feats.shape[1:])
+            feats_l = [feats[:, i] for i in range(n)]
+        if self.aggregation.startswith("norm"):
+            feats_l = [f / torch.linalg.vector_norm(
+                f, dim=-1, keepdim=True).clamp_min(1e-12) for f in feats_l]
+
+        src_idx = [i for i in range(n) if i != reference_frame]
+        ref_feature = feats_l[reference_frame]
+        fh, fw = ref_feature.shape[1:3]
+        ref_proj = proj[:, reference_frame]
+        ref_depths = depth_values[:, reference_frame].contiguous()  # [B, D]
+        temp = self.temp if self.agg == "softmin" else None
+        method = self.resolve_sweep(ref_feature.dtype, ref_feature.device,
+                                    ragged)
+
+        def bf16(f):
+            return f.to(torch.bfloat16).contiguous()
+
+        if method == "fused":
+            planes = [mvsnet_planes(proj[:, i], ref_proj, (fh, fw))
+                      for i in src_idx]
+            cost_volume = fused_cost_volume(
+                bf16(ref_feature),
+                bf16(torch.stack([feats_l[i] for i in src_idx], 1)),
+                torch.stack([p for p, _ in planes], 1),
+                torch.stack([q for _, q in planes], 1),
+                ref_depths, temp, self.agg).to(ref_feature.dtype)
+        else:
+            if method == "warp":
+                fns = [(lambda i=i: sweep_warp(
+                    bf16(feats_l[i]),
+                    *mvsnet_planes(proj[:, i], ref_proj, (fh, fw)),
+                    ref_depths)) for i in src_idx]
+            else:
+                fns = [(lambda i=i: plane_sweep_warp(
+                    feats_l[i], proj[:, i], ref_proj, ref_depths, (fh, fw)))
+                    for i in src_idx]
+            if self.agg == "variance":
+                cost_volume = variance_cost_volume(
+                    ref_feature, warp_fns=fns, num_depth=self.num_depth)
+            else:
+                cost_volume = softmin_cost_volume(ref_feature, warp_fns=fns,
+                                                  temperature=temp)
+
+        cost_reg = self.cost_regularization(cost_volume)[..., 0]
+        prob_volume = torch.softmax(cost_reg.float(), dim=1)   # [B, D, H, W]
+        depth = depth_regression(prob_volume, ref_depths)
+        confidence = photometric_confidence(prob_volume.detach())
+        return {
+            "depth": depth,
+            "depth_est_list": [depth],
+            "depth_pair_list": [],
+            "photometric_confidence": confidence,
+        }

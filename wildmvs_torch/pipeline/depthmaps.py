@@ -1,0 +1,84 @@
+"""Stage 1: depthmap inference over an eval dataset, cached per view.
+
+Counterpart of wildmvs/pipeline/depthmaps.py:23-154 (reference
+evaluation/run_depthmaps.py:27-74 and pipeline_utils.py:88-154): one npz
+{depthmap, probability} per reference view, a finished.txt sentinel, and
+per-file existence checks.
+"""
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+
+def eval_model_kwargs(architecture: str, bf16: bool = True,
+                      sweep_method: str = "auto") -> dict:
+    """Eval-time model constructor overrides and the output depthmap scale
+    (depth resolution = image resolution / downscale). Inference defaults
+    to bf16 networks.
+
+    Only the MVSNet family is ported; vis_mvsnet and cvp_mvsnet raise
+    (ROADMAP Queue 1 #9, #10)."""
+    if architecture not in ("mvsnet", "mvsnet-s"):
+        raise NotImplementedError(
+            f"{architecture}: the port runs mvsnet and mvsnet-s only "
+            f"(vis_mvsnet and cvp_mvsnet are ROADMAP Queue 1 #9 and #10)")
+    kwargs = {"sweep_method": sweep_method}
+    if bf16:
+        kwargs["dtype"] = torch.bfloat16
+    return {"kwargs": kwargs, "downscale": 4}
+
+
+def run_depthmaps(dataset, model: torch.nn.Module, out_dir: str | Path,
+                  override: bool = False):
+    """Run the eval forward for every reference view and cache npz outputs.
+
+    `dataset` is anything with len() and [i] that yields the eval sample
+    dict: imgs [N, H, W, 3] (or a list of per-view [Hi, Wi, 3]), K, R, t,
+    depth_min, depth_max (numpy or tensors, no batch axis) and filename.
+    The model runs on the device its parameters are on. (The JAX
+    package's multi-host sharding of the view list is not ported yet.)
+    """
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if (out_dir / "finished.txt").exists() and not override:
+        return
+    device = next(model.parameters()).device
+    model.eval()
+
+    def batch1(x):
+        return torch.as_tensor(np.array(x, np.float32), device=device)[None]
+
+    for i in range(len(dataset)):
+        sample = dataset[i]
+        filename = sample["filename"].replace("/", "_")
+        out_file = out_dir / f"{filename}_out.npz"
+        if out_file.exists() and not override:
+            continue
+        imgs = sample["imgs"]
+        imgs = ([batch1(v) for v in imgs] if isinstance(imgs, list)
+                else batch1(imgs))
+        with torch.inference_mode():
+            out = model(imgs, *(batch1(sample[k]) for k in
+                                ("K", "R", "t", "depth_min", "depth_max")))
+        np.savez_compressed(
+            out_file,
+            depthmap=out["depth"][0].float().cpu().numpy(),
+            probability=out["photometric_confidence"][0].float().cpu()
+            .numpy())
+    (out_dir / "finished.txt").write_text(" ")
+
+
+def get_mask_invalid(prob: np.ndarray, prob_threshold: float = 0.8,
+                     geo_mask: np.ndarray | None = None) -> np.ndarray:
+    """Invalid-pixel mask from probability (+ optional geometric mask).
+    Multi-stage probabilities pass if ANY stage clears the threshold."""
+    if prob.ndim > 2:
+        mask_invalid = (prob < prob_threshold).all(axis=0)
+    else:
+        mask_invalid = prob < prob_threshold
+    if geo_mask is not None:
+        mask_invalid = mask_invalid | ~geo_mask
+    return mask_invalid
