@@ -19,6 +19,18 @@ JAX or of the JAX package. Phases, each of which stops the run if it fails:
      gather path.
   3. eval: one 1184x1600, N=5, D=192 request through the fused kernel.
   4. run_depthmaps over 2 in-memory samples into a temporary directory.
+  5. training (the second path): 6 supervised steps of MVSNet at 512x640,
+     N=3, D=192, bf16 compute with f32 parameters, on one synthetic batch
+     through sweep_method "auto": the warp kernel forward and the
+     sweep_warp_backward kernel backward, 2 launches each per step, no
+     fused launch. Finite losses and gradients, the last loss below the
+     first, the first step's feature gradients against the exact gather
+     path's autograd, then an eval step, a test step, and a checkpoint
+     served by Predictor.
+
+Phase 1 also holds sweep_warp_backward to its plain version ([D], [D,H,W]
+and the behind-camera rig) and times it against torch's
+grid_sampler_2d_backward.
 
 Prints the card, the kernels' register/spill summary and one line per
 phase, then a `kernels` JSON line and, last, the device JSON line.
@@ -36,10 +48,16 @@ import torch
 import torch.nn.functional as F
 
 from wildmvs_torch import _build
+from wildmvs_torch.data.synthetic import SyntheticMVSDataset, collate
 from wildmvs_torch.geometry.projective import build_proj_matrices, scale_K
 from wildmvs_torch.infer import Predictor
+from wildmvs_torch.models import mvsnet as mvsnet_module
 from wildmvs_torch.ops import sweep_kernels as sk
+from wildmvs_torch.ops.plane_sweep import plane_sweep_warp
 from wildmvs_torch.pipeline.depthmaps import run_depthmaps
+from wildmvs_torch.train import trainer as T
+from wildmvs_torch.train.checkpoint import save_checkpoint
+from wildmvs_torch.train.config import TrainConfig
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
@@ -51,6 +69,7 @@ DEPTH_RANGE = (425.0, 935.0)
 # depth the mid-range one); this gain on the last conv peaks them, so that
 # the sweep backends' differences reach the depth
 PROB_GAIN = 100.0
+TRAIN_STEPS = 6
 
 
 def check(cond: bool, msg: str) -> None:
@@ -141,6 +160,63 @@ def compare(name, got, want, extra=""):
           f"(scale {scale:.4g}){extra}", flush=True)
     check(err <= limit, f"{name}: kernel vs plain {err} > {limit}")
     return err
+
+
+def compare_backward(g, P, Q, s, src_hw, case):
+    """sweep_warp_backward against its plain version: the f32 accumulation
+    within 1e-4 of the plain result's scale (the atomics add in an order
+    that changes from run to run; f32 sums of at most a few hundred terms
+    per element stay far below that), and the bf16 result within one bf16
+    ulp (2^-7) of the scale. Returns (f32 error, bf16 error)."""
+    want = sk.sweep_warp_backward_plain(g, P, Q, s, src_hw)
+    got32 = sk.sweep_warp_backward(g, P, Q, s, src_hw, torch.float32)
+    got16 = sk.sweep_warp_backward(g, P, Q, s, src_hw)
+    torch.cuda.synchronize()
+    scale = max(want.abs().max().item(), 1e-6)
+    err32 = (got32 - want).abs().max().item()
+    err16 = (got16.float() - want).abs().max().item()
+    print(f"phase1 sweep_warp_backward {case}: f32 max_abs_err {err32:.6g} "
+          f"limit {1e-4 * scale:.6g}; bf16 max_abs_err {err16:.6g} limit "
+          f"{2 ** -7 * scale:.6g} (scale {scale:.4g})", flush=True)
+    check(err32 <= 1e-4 * scale, f"sweep_warp_backward {case}: f32 "
+          f"accumulation vs plain {err32} > {1e-4 * scale}")
+    check(err16 <= 2 ** -7 * scale, f"sweep_warp_backward {case}: bf16 "
+          f"result vs plain {err16} > {2 ** -7 * scale}")
+    return err32, err16
+
+
+def backward_atomics(P, Q, s, src_hw, d_chunk, groups):
+    """16-byte atomics of one sweep_warp_backward launch on these inputs:
+    (this kernel's count, the count of one thread per sample). A thread
+    flushes its corners when its sample changes source cell within its
+    run of d_chunk hypotheses; each flush adds two 16-byte atomics per
+    corner inside the image, for each of the C/8 channel groups."""
+    h, w = src_hw
+    s = s[:, :, None, None] if s.dim() == 2 else s
+    r = P[:, :, None] * s[:, None] + Q[:, :, None]          # [1, 3, D, ..]
+    pos = r[0, 2] > 0
+    z = torch.where(pos, r[0, 2], torch.ones_like(r[0, 2]))
+    x0 = torch.floor(r[0, 0] / z)
+    y0 = torch.floor(r[0, 1] / z)
+    live = pos & (x0 >= -1) & (x0 <= w - 1) & (y0 >= -1) & (y0 <= h - 1)
+    inside = sum(((x0 + dx >= 0) & (x0 + dx < w) & (y0 + dy >= 0)
+                  & (y0 + dy < h)).long()
+                 for dx in (0, 1) for dy in (0, 1))
+    cell = torch.where(live, (y0 + 1) * (w + 2) + x0 + 1,
+                       torch.full_like(x0, -1.0))
+    runs = 0
+    for d0 in range(0, cell.shape[0], d_chunk):
+        c = cell[d0:d0 + d_chunk]
+        # the cell of the last live sample before each hypothesis
+        idx = torch.where(c >= 0, torch.arange(
+            c.shape[0], device=c.device)[:, None, None], -1)
+        last = torch.cummax(idx, 0).values
+        prev = torch.where(last[:-1] >= 0, torch.gather(
+            c, 0, last[:-1].clamp_min(0)), torch.full_like(c[1:], -1.0))
+        starts = torch.cat([c[:1] >= 0, (c[1:] >= 0) & (c[1:] != prev)])
+        runs += int((starts * inside[d0:d0 + d_chunk]).sum())
+    naive = int((live * inside).sum())
+    return 2 * groups * runs, 2 * groups * naive
 
 
 def kernel_inputs(cfg, dev, C=32):
@@ -240,6 +316,42 @@ def phase1_kernels(dev):
           f"bound_ms {b_ms:.4f} ({b_by}) live samples {n_live}",
           flush=True)
 
+    # --- sweep_warp_backward -----------------------------------------------
+    g = torch.randn((1, NUM_DEPTH, fh, fw, C), device=dev,
+                    generator=torch.Generator(dev).manual_seed(1)).to(
+        torch.bfloat16)
+    bwd_cases = {"[D]": warp_args[1:], "[D,H,W]": a[1:],
+                 "behind-camera rig": behind[1:]}
+    for case, (P_, Q_, s_) in bwd_cases.items():
+        compare_backward(g, P_, Q_, s_, (fh, fw), case)
+    err32, _ = compare_backward(g, *warp_args[1:], (fh, fw), "[D] (timed)")
+    bwd = (g, *warp_args[1:], (fh, fw))
+    ms = cuda_ms(lambda: sk.sweep_warp_backward(*bwd), reps=50, warmup=5)
+    plain_ms = cuda_ms(lambda: sk.sweep_warp_backward_plain(*bwd), reps=3,
+                       warmup=1)
+    # yardstick: the input gradient of grid_sample over the same grid and
+    # cotangent (bf16, NCHW views of the channels-last tensors)
+    g_nchw = g.reshape(1, NUM_DEPTH * fh, fw, C).permute(0, 3, 1, 2)
+    library_ms = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+        g_nchw, src_nchw, grid, 0, 0, True, [True, False]), reps=20,
+        warmup=2)
+    runs, naive = backward_atomics(*warp_args[1:], (fh, fw),
+                                   sk.BACKWARD_D_CHUNK, C // 8)
+    df_bytes = fh * fw * C * 4
+    b_ms, b_by = bound(nbytes(g, *warp_args[1:]) + df_bytes,
+                       n_live * C * 8 + NUM_DEPTH * fh * fw * 20)
+    results["sweep_warp_backward"] = dict(
+        name="sweep_warp_backward", route="cuda",
+        source="wildmvs_torch/csrc/sweep.cu",
+        replaces="wildmvs/ops/mosaic_sweep.py:1930",
+        max_abs_err=err32, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=library_ms)
+    print(f"phase1 sweep_warp_backward: ms {ms:.4f} plain_ms {plain_ms:.3f}"
+          f" library_ms {library_ms:.4f} (bf16 grid_sampler_2d_backward) "
+          f"bound_ms {b_ms:.4f} ({b_by}); 16-byte f32 atomics {runs} (one "
+          f"thread per sample would issue {naive}), "
+          f"{runs * 16 / ms / 1e6:.1f} GB/s of atomics", flush=True)
+
     # --- fused_cost_volume -------------------------------------------------
     fused_args = {}
     for agg in ("variance", "softmin"):
@@ -324,24 +436,28 @@ def agreement(name, out, cv, out_ref, cv_ref):
           f"{name} depth disagrees with the exact gather")
 
 
-def profile_request(pred, scene):
-    """Device time by kernel over one request (torch.profiler); only
-    device-side events count, so no kernel is counted twice."""
+def profile_step(fn, phase):
+    """Device time by operation over one call of fn (torch.profiler),
+    host clock to the device's end; only device-side events count, so no
+    kernel is counted twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall_ms = request_ms(pred, scene)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.device_time_total for e in events) / 1e3
-    print(f"phase2 profile: request {wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.3f} of the request)",
-          flush=True)
-    for e in sorted(events, key=lambda e: -e.device_time_total)[:12]:
-        print(f"phase2 profile: {e.device_time_total / 1e3:9.3f} ms "
+    print(f"{phase} profile: {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({busy_ms / wall_ms:.3f})", flush=True)
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:15]:
+        print(f"{phase} profile: {e.device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<4d} {e.key[:100]}", flush=True)
-    return dict(profiled_request_ms=wall_ms, device_busy_ms=busy_ms)
+    return dict(profiled_ms=wall_ms, device_busy_ms=busy_ms)
 
 
 def phase2_serving():
@@ -384,7 +500,7 @@ def phase2_serving():
     for name, p in (("fused", pred), ("warp", pred_warp)):
         agreement(name, *with_cost_volume(p, scenes[0]), out_g, cv_g)
     del cv_g
-    prof = profile_request(pred, scenes[1])
+    prof = profile_step(lambda: pred(*scenes[1]), "phase2")
     print(f"phase2 gather request ms {[round(t, 3) for t in gather_ms]}",
           flush=True)
     return pred, counts, dict(
@@ -446,6 +562,138 @@ def phase4_depthmaps(pred):
     print(f"phase4 run_depthmaps: {files}", flush=True)
 
 
+def record_warps(rec: list):
+    """Patch the model's sweep_warp so that, while `rec` is not None, each
+    call keeps its inputs, the gradient of its output (g) and the gradient
+    of its source features (df: the source features feed nothing but the
+    warp, so that is what sweep_warp_backward returned). Returns the undo."""
+    real = mvsnet_module.sweep_warp
+
+    def recording(src, P, Q, s):
+        out = real(src, P, Q, s)
+        entry = {"src": src.detach(), "P": P, "Q": Q, "s": s}
+        out.register_hook(lambda g: entry.__setitem__("g", g))
+        src.register_hook(lambda df: entry.__setitem__("df", df))
+        rec.append(entry)
+        return out
+
+    mvsnet_module.sweep_warp = recording
+    return lambda: setattr(mvsnet_module, "sweep_warp", real)
+
+
+def warp_gradient_agreement(rec, batch, model):
+    """The kernel path's source-feature gradients against the exact gather
+    path's autograd (plane_sweep_warp in f32) at the same cotangent.
+
+    The kernel takes the bf16 cotangent, accumulates in f32 with atomics
+    and rounds once to bf16; the gather transposes in f32. Held to one
+    bf16 ulp (2^-7) of the gradient's scale in max and 2^-9 in mean."""
+    D = model.num_depth
+    proj = build_proj_matrices(scale_K(batch["K"], 0.25), batch["R"],
+                               batch["t"])
+    steps = torch.arange(D, dtype=torch.float32, device=proj.device)
+    dmin, dmax = batch["depth_min"][:, 0], batch["depth_max"][:, 0]
+    ref_depths = dmin[:, None] + ((dmax - dmin) / (D - 1))[:, None] * steps
+    worst = 0.0
+    for view, e in zip((1, 2), rec):
+        src = e["src"].float().requires_grad_()
+        fh, fw = src.shape[1:3]
+        warped = plane_sweep_warp(src, proj[:, view], proj[:, 0],
+                                  ref_depths, (fh, fw))
+        (want,) = torch.autograd.grad(warped, src, e["g"].float())
+        err = (e["df"].float() - want).abs()
+        scale = want.abs().max().item()
+        print(f"phase5 feature gradient view {view}: kernel vs gather max "
+              f"{err.max().item():.6g} mean {err.mean().item():.6g} (scale "
+              f"{scale:.4g}, limits {2 ** -7 * scale:.4g} and "
+              f"{2 ** -9 * scale:.4g})", flush=True)
+        check(scale > 0, "zero feature gradient")
+        check(err.max().item() <= 2 ** -7 * scale
+              and err.mean().item() <= 2 ** -9 * scale,
+              f"view {view}: kernel feature gradient disagrees with the "
+              f"gather path's")
+        worst = max(worst, err.max().item())
+    return worst
+
+
+def phase5_training(dev):
+    """The training path: TRAIN_STEPS supervised bf16 steps of MVSNet at
+    512x640, N=3, D=192 through sweep_method "auto" (the warp kernel and
+    its backward) on one fixed synthetic batch, an eval and a test step, a
+    checkpoint, and a Predictor that serves it."""
+    cfg = TrainConfig(architecture="mvsnet", dataset="synthetic",
+                      num_depth=NUM_DEPTH, lr=1e-3, train_dtype="bfloat16")
+    ds = SyntheticMVSDataset(num_samples=1, num_views=HEADLINE["n"],
+                             height=HEADLINE["h"], width=HEADLINE["w"])
+    sample = collate([ds[0]])
+    batch = T.batch_to_device(sample, dev)
+    state = T.create_train_state(cfg, dev)
+    params = list(state.model.parameters())
+    check(all(p.dtype == torch.float32 for p in params),
+          "training parameters are not f32")
+    rec = []
+    undo = record_warps(rec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = T.train_step(state, batch, cfg)
+        grads_finite = torch.stack([torch.isfinite(p.grad).all()
+                                    for p in params]).all()
+        losses.append(m["train_loss"].item())
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(bool(grads_finite), f"step {i}: a gradient is not finite")
+        if i == 0:
+            undo()
+            first_conv = state.model.feature.conv0.conv.weight.grad
+            check(first_conv.abs().max().item() > 0,
+                  "FeatureNet's first conv got no gradient")
+    counts = sk.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase5 launches {json.dumps(counts)}", flush=True)
+    check(counts["sweep_warp"] == 2 * TRAIN_STEPS
+          and counts["sweep_warp_backward"] == 2 * TRAIN_STEPS
+          and counts["fused_cost_volume"] == 0,
+          f"training did not take the warp kernels: {counts}")
+    check(len(rec) == 2 and all("df" in e and "g" in e for e in rec),
+          "the first step's warps were not recorded")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"losses {losses}")
+    steady = float(np.median(times[1:]))
+    print(f"phase5 training 512x640 N3 D192 bf16 (f32 parameters): losses "
+          f"{[round(x, 4) for x in losses]}; ms per step first "
+          f"{times[0]:.3f} then {[round(t, 3) for t in times[1:]]} (median "
+          f"{steady:.3f}); peak memory {peak / 2**30:.3f} GiB", flush=True)
+    grad_err = warp_gradient_agreement(rec, batch, state.model)
+    del rec
+    prof = profile_step(lambda: T.train_step(state, batch, cfg), "phase5")
+
+    n0 = sk.fused_cost_volume.launches
+    val = T.eval_step(state, batch, cfg)["val_loss"].item()
+    test = {k: v.item() for k, v in T.test_step(state, batch, cfg).items()}
+    check(sk.fused_cost_volume.launches == n0 + 2,
+          "eval and test steps skipped the fused kernel")
+    check(np.isfinite(val) and all(np.isfinite(list(test.values()))),
+          f"eval {val} test {test}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = save_checkpoint(tmp, 0, state, cfg.architecture)
+        pred = Predictor(ckpt)
+        out = pred(*(sample[k][0] for k in ("imgs", "K", "R", "t",
+                                            "depth_min", "depth_max")))
+    check(out["depth"].shape == (HEADLINE["h"] // 4, HEADLINE["w"] // 4)
+          and np.isfinite(out["depth"]).all(),
+          "the trained checkpoint served a bad depthmap")
+    print(f"phase5 eval_step val_loss {val:.4f}; test_step {test}; "
+          f"checkpoint served: depth mean {out['depth'].mean():.3f}",
+          flush=True)
+    return counts, dict(losses=losses, first_step_ms=times[0],
+                        step_ms_median=steady, step_ms=times,
+                        peak_gib=peak / 2 ** 30, val_loss=val, test=test,
+                        feature_grad_max_err=grad_err, **prof)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -474,15 +722,23 @@ def main() -> int:
     pred, counts, serving = phase2_serving()
     evals = phase3_eval(pred, dev)
     phase4_depthmaps(pred)
+    del pred
+    torch.cuda.empty_cache()
+    train_counts, training = phase5_training(dev)
 
+    # launches: the serving path's (phase 2) plus the training path's
+    # (phase 5), each counted from 0 just before its run
     for name, k in kernels.items():
-        k["launches"] = counts[name]
+        k["launches_by_path"] = {"serving": counts[name],
+                                 "training": train_counts[name]}
+        k["launches"] = counts[name] + train_counts[name]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_by_path"]
     print(json.dumps({"kernels": [{k: v[k] for k in keys}
                                   for v in kernels.values()],
-                      "serving": serving, "eval": evals, "card": card}),
-          flush=True)
+                      "serving": serving, "eval": evals,
+                      "training": training, "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -180,7 +180,7 @@ def test_wrapper_rejects_bad_arguments(bad, match):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("agg", [None, "variance", "softmin"])
+@pytest.mark.parametrize("agg", [None, "variance", "softmin", "backward"])
 def test_cuda_kernel_matches_plain(agg):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels are built with nvcc "
@@ -197,6 +197,18 @@ def test_cuda_kernel_matches_plain(agg):
         got = sk.sweep_warp(feats[:, 1].contiguous(), P, Q, s)
         want = sk.sweep_warp_plain(feats[:, 1].contiguous(), P, Q, s)
         assert sk.sweep_warp.launches == n0 + 1
+    elif agg == "backward":
+        g = torch.from_numpy(bf16_features(rng, (1, D, H, W, C))).to(
+            dev, torch.bfloat16)
+        n0 = sk.sweep_warp_backward.launches
+        got = sk.sweep_warp_backward(g, P, Q, s, (H, W), torch.float32)
+        want = sk.sweep_warp_backward_plain(g, P, Q, s, (H, W))
+        assert sk.sweep_warp_backward.launches == n0 + 1
+        torch.cuda.synchronize()
+        # f32 sums of a few terms each, added in another (atomic) order
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 1e-4 * scale
+        return
     else:
         P2, Q2 = torch.stack([P, P], 1), torch.stack([Q, Q], 1)
         temp = torch.full((1,), 0.05, device=dev)

@@ -8,11 +8,16 @@ package so each counterpart is easy to find:
   ops/grid_sample.py       border-zero bilinear sampling
   ops/plane_sweep.py       the exact f32 gather sweep (the reference path)
   ops/volumes.py           variance/softmin aggregation, depth regression
-  ops/sweep_kernels.py     the Hopper kernels' wrappers + plain versions
+  ops/sweep_kernels.py     the Hopper kernels' wrappers + plain versions,
+                           the warp's autograd (SweepWarpFn)
   csrc/sweep.cu            the hand-written CUDA kernels (built on first use)
   nn/blocks.py             ConvBnReLU / ConvTransposeBnReLU
-  models/                  api (registry) + MVSNet
-  train/jax_import.py      JAX params -> port state_dict
+  models/                  api (registry) + MVSNet (eval and train forward)
+  losses/supervised.py     supervised depth losses, resize_bilinear
+  data/synthetic.py        SyntheticMVSDataset, collate
+  train/                   config, trainer (steps), metrics, checkpoint,
+                           cli (the training loop), jax_import
+  utils/monitor.py         MeterSet, JSON-lines Logger
   infer.py                 Predictor
   pipeline/depthmaps.py    run_depthmaps
 

@@ -29,6 +29,7 @@ _I = ctypes.c_int
 # C signatures of csrc/sweep.cu (argument order as declared there)
 SIGNATURES = {
     "wm_sweep_warp": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    "wm_sweep_warp_backward": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
     "wm_fused_cost_volume": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 10 + [_P],
 }
 

@@ -1,9 +1,11 @@
 """MVSNet: single-scale plane sweep with variance or softmin aggregation.
 
 Counterpart of wildmvs/models/mvsnet.py:35-322 (reference
-models/MVSNet/model.py), eval forward:
+models/MVSNet/model.py), eval and train forward:
   FeatureNet: 7 conv2d (8 -> 16 -> 32 channels, two stride-2) + a final conv
-    -> 1/4-resolution 32-channel features, one batched call over all views
+    -> 1/4-resolution 32-channel features; one batched call over all views
+    at eval, one call per view in train mode (per-view BatchNorm
+    statistics, as the reference; `batched_bn=True` batches them)
   cost volume over `num_depth` hypotheses from the reference view's own
     range, aggregated across views by variance or softmin
   CostRegNet: 3D U-Net (8/16/32/64 channels, three stride-2 levels,
@@ -13,21 +15,30 @@ models/MVSNet/model.py), eval forward:
 Cost-volume backends (`sweep_method`):
   "gather"  the plain exact f32 gather (ops/plane_sweep.py);
   "warp"    the per-view `sweep_warp` kernel, aggregation in torch (the
-            counterpart of JAX _cost_volume_mosaic_v1);
-  "fused"   the `fused_cost_volume` kernel, one launch per forward;
-  "auto"    "fused" for bf16 features on the card, else "gather" (f32
-            features are not what the kernels take; the CPU runs the exact
-            path);
+            counterpart of JAX _cost_volume_mosaic_v1 at eval and of
+            plane_sweep_warp_mosaic in training); differentiable through
+            the `sweep_warp_backward` kernel;
+  "fused"   the `fused_cost_volume` kernel, one launch per forward; eval
+            only (it has no backward; train mode raises);
+  "auto"    for bf16 features on the card "fused" at eval and "warp" in
+            train mode, else "gather" (f32 features are not what the
+            kernels take; the CPU runs the exact path);
   "rect"    not ported yet (ROADMAP Queue 1, ops/rect_sweep.py).
 Views of different sizes go through "warp" where "fused" was chosen: the
 warp kernel takes any source size, one launch per source view.
 
-bf16 (`dtype=torch.bfloat16`): convolution weights are cast once, BatchNorm
-stays f32 and returns bf16, as flax's per-layer `dtype` does; geometry
+Precision: `dtype` is the networks' compute dtype, `param_dtype` (default
+`dtype`) the dtype of the convolution weights, as flax's pair. Serving
+(dtype=param_dtype=bf16) casts the weights once; training (dtype=bf16,
+param_dtype=f32) keeps f32 parameters and runs the convolutions in bf16
+under torch.autocast, confined to the two networks. BatchNorm parameters
+and statistics stay f32 and return the compute dtype; geometry
 (projections, hypotheses, sampling coordinates) stays f32. The softmax and
 regression run in f32 (the JAX package takes its softmax in bf16).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -44,12 +55,22 @@ from .api import register_model, view_list
 SWEEP_METHODS = ("auto", "gather", "warp", "fused", "rect")
 
 
+def compute_in(dtype: torch.dtype, weight: torch.Tensor):
+    """Context in which a network with weights like `weight` computes in
+    `dtype`: autocast when the two differ (f32 parameters, bf16 compute),
+    else nothing."""
+    if weight.dtype == dtype:
+        return contextlib.nullcontext()
+    return torch.autocast(weight.device.type, dtype=dtype)
+
+
 class FeatureNet(nn.Module):
     """8-8 / 16-16-16 / 32-32 conv stack: [M, H, W, 3] -> [M, H/4, W/4, 32]
     channels-last (reference model.py:21-41)."""
 
-    def __init__(self):
+    def __init__(self, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv0 = ConvBnReLU(3, 8, 3, 1, 1)
         self.conv1 = ConvBnReLU(8, 8, 3, 1, 1)
         self.conv2 = ConvBnReLU(8, 16, 5, 2, 2)
@@ -61,18 +82,21 @@ class FeatureNet(nn.Module):
 
     def forward(self, x):
         # a channels-last tensor seen as NCHW: cuDNN keeps that memory format
-        x = x.permute(0, 3, 1, 2).to(self.feature.weight.dtype)
-        for i in range(7):
-            x = getattr(self, f"conv{i}")(x)
-        return self.feature(x).permute(0, 2, 3, 1).contiguous()
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        with compute_in(self.dtype, self.feature.weight):
+            for i in range(7):
+                x = getattr(self, f"conv{i}")(x)
+            x = self.feature(x)
+        return x.permute(0, 2, 3, 1).contiguous()
 
 
 class CostRegNet(nn.Module):
     """3D U-Net regularizer, [B, D, H, W, C] -> [B, D, H, W, 1]
     (reference model.py:43-84)."""
 
-    def __init__(self, in_channels: int = 32):
+    def __init__(self, in_channels: int = 32, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv0 = ConvBnReLU(in_channels, 8, dim=3)
         self.conv1 = ConvBnReLU(8, 16, stride=2, dim=3)
         self.conv2 = ConvBnReLU(16, 16, dim=3)
@@ -87,20 +111,23 @@ class CostRegNet(nn.Module):
 
     def forward(self, x):
         # [B, D, H, W, C] memory seen as NCDHW is channels_last_3d
-        x = x.permute(0, 4, 1, 2, 3).to(self.prob.weight.dtype)
-        c0 = self.conv0(x)
-        c2 = self.conv2(self.conv1(c0))
-        c4 = self.conv4(self.conv3(c2))
-        x = self.conv6(self.conv5(c4))
-        x = c4 + self.conv7(x)
-        x = c2 + self.conv9(x)
-        x = c0 + self.conv11(x)
-        return self.prob(x).permute(0, 2, 3, 4, 1)
+        x = x.permute(0, 4, 1, 2, 3).to(self.dtype)
+        with compute_in(self.dtype, self.prob.weight):
+            c0 = self.conv0(x)
+            c2 = self.conv2(self.conv1(c0))
+            c4 = self.conv4(self.conv3(c2))
+            x = self.conv6(self.conv5(c4))
+            x = c4 + self.conv7(x)
+            x = c2 + self.conv9(x)
+            x = c0 + self.conv11(x)
+            x = self.prob(x)
+        return x.permute(0, 2, 3, 4, 1)
 
 
 @register_model("mvsnet")
 class MVSNet(nn.Module):
-    """MVSNet eval forward under the uniform model contract (models/api.py).
+    """MVSNet under the uniform model contract (models/api.py); train mode
+    (`model.train()`) runs the training forward.
 
     Args:
       aggregation: "variance" | "softmin", optionally prefixed "norm" (unit
@@ -108,12 +135,16 @@ class MVSNet(nn.Module):
       num_depth: number of depth hypotheses.
       sweep_method: see the module docstring.
       dtype: torch.float32 or torch.bfloat16 compute for the networks.
+      param_dtype: dtype of the convolution weights (default `dtype`).
+      batched_bn: featurize all views in one call in train mode too
+        (train-mode BatchNorm then normalizes across views; the JAX
+        package's option of that name).
       seed: seed of the random initial weights.
     """
 
     def __init__(self, aggregation: str = "variance", num_depth: int = 192,
                  sweep_method: str = "auto", dtype=torch.float32,
-                 seed: int = 0):
+                 param_dtype=None, batched_bn: bool = False, seed: int = 0):
         super().__init__()
         agg = aggregation.removeprefix("norm").lstrip("-_") or aggregation
         if agg not in ("variance", "softmin"):
@@ -125,19 +156,25 @@ class MVSNet(nn.Module):
         self.agg = agg
         self.num_depth = num_depth
         self.sweep_method = sweep_method
-        self.feature = FeatureNet()
-        self.cost_regularization = CostRegNet()
+        self.batched_bn = batched_bn
+        self.feature = FeatureNet(dtype)
+        self.cost_regularization = CostRegNet(dtype=dtype)
         if agg == "softmin":
             self.temp = nn.Parameter(torch.ones(1))
         init_weights(self, torch.Generator().manual_seed(seed))
-        cast_convs(self, dtype)
+        cast_convs(self, dtype if param_dtype is None else param_dtype)
 
     def resolve_sweep(self, feats_dtype: torch.dtype, device: torch.device,
                       ragged: bool) -> str:
         """The cost-volume backend this forward takes."""
         method = self.sweep_method
+        if method == "fused" and self.training:
+            raise ValueError(
+                "sweep_method='fused' is eval only (fused_cost_volume has "
+                "no backward); train through 'warp', 'gather' or 'auto'")
         if method == "auto":
-            method = ("fused" if device.type == "cuda"
+            kernel = "warp" if self.training else "fused"
+            method = (kernel if device.type == "cuda"
                       and feats_dtype == torch.bfloat16 else "gather")
         if method == "fused" and ragged:
             method = "warp"
@@ -149,10 +186,6 @@ class MVSNet(nn.Module):
 
     def forward(self, imgs, K, R, t, depth_min, depth_max,
                 reference_frame: int = 0):
-        if self.training:
-            raise NotImplementedError(
-                "the port has the eval forward only; MVSNet training is "
-                "ROADMAP Queue 1 #8 (call model.eval())")
         views, ragged = view_list(imgs)
         n = len(views)
         b = views[0].shape[0]
@@ -173,7 +206,9 @@ class MVSNet(nn.Module):
         depth_values = (depth_min.float()[..., None]
                         + interval[..., None] * steps)       # [B, N, D]
 
-        if ragged:
+        if ragged or (self.training and not self.batched_bn):
+            # per-view calls: train-mode BatchNorm statistics per view,
+            # running statistics updated once per view in view order
             feats_l = [self.feature(v) for v in views]
         else:
             stacked = imgs if torch.is_tensor(imgs) else torch.stack(views, 1)

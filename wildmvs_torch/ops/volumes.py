@@ -4,7 +4,9 @@ Counterpart of wildmvs/ops/volumes.py:67-141, 165-179, 215-234. Layout:
 volumes [B, D, H, W, C], probability volumes [B, D, H, W]. The running sums
 are f32 whatever the feature dtype (E[x^2] - E[x]^2 cancels badly in bf16)
 and are updated in place, so one source volume at a time is live besides
-them; the result is cast back to the feature dtype.
+them; the result is cast back to the feature dtype. Both aggregations are
+differentiable: the variance's in-place updates keep what autograd needs,
+and softmin updates in place only when no input requires grad.
 """
 from __future__ import annotations
 
@@ -12,6 +14,11 @@ from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        torch.is_tensor(t) and t.requires_grad for t in tensors)
 
 
 def _thunks(warped_iter, warp_fns):
@@ -74,7 +81,17 @@ def softmin_cost_volume(ref_feature: torch.Tensor,
     ref_volume = ref_feature.float()[:, None]
     sum_exp = sum_val = None
     for fn in fns:
-        diff = (ref_volume - fn().float()).square_()
+        warped = fn().float()
+        if _needs_grad(ref_volume, warped, temperature):
+            # autograd keeps exp's output and the squared differences for
+            # the backward: no in-place updates
+            diff = (ref_volume - warped).square()
+            e = torch.exp(-temperature * diff.sum(-1, keepdim=True))
+            contrib = e * diff
+            sum_exp = e if sum_exp is None else sum_exp + e
+            sum_val = contrib if sum_val is None else sum_val + contrib
+            continue
+        diff = (ref_volume - warped).square_()
         e = torch.exp(-temperature * diff.sum(-1, keepdim=True))
         if sum_exp is None:
             sum_exp, sum_val = e, diff.mul_(e)
