@@ -10,8 +10,10 @@ JAX or of the JAX package. Phases, each of which stops the run if it fails:
   1. kernel vs plain: each Hopper kernel against its plain PyTorch version
      at the 512x640 headline shapes (128x160 features, C=32, D=192, NV=2):
      fronto-parallel and per-pixel hypotheses, variance and softmin, and a
-     rig partly behind the source camera. Times the kernel, the plain
-     version and, for the warp, torch's grid_sample over the same grid.
+     rig partly behind the source camera. Times the kernel (CUDA events
+     around replays of a CUDA graph of its launches, and around a plain
+     loop of launches), the plain version and, for the warp, torch's
+     grid_sample over the same grid.
   2. serving (the main path): Predictor("mvsnet", bf16) at 512x640, N=3,
      D=192 answers 3 requests (seeded DTU-like scenes) through the fused
      kernel, then one through the per-view warp kernel; the launch counts
@@ -27,10 +29,28 @@ JAX or of the JAX package. Phases, each of which stops the run if it fails:
      first, the first step's feature gradients against the exact gather
      path's autograd, then an eval step, a test step, and a checkpoint
      served by Predictor.
+  6. Vis-MVSNet serving (the third path): Predictor with the trained asset
+     assets/vis_synth_trained.npz at 1184x1600, N=5, depth_nums (64, 32,
+     16), bf16, on the bench scene (a textured plane rendered into the
+     DTU-like rig): 12 sweep_gwc launches per request (3 stages x 4 pairs)
+     and nothing else of the kernels; finite outputs; each stage held to
+     the exact gather on that stage's own inputs (cost volumes within bf16
+     rounding, stage-3 depth within one hypothesis interval); a request
+     with random weights; run_depthmaps over 2 samples.
+  7. Vis-MVSNet training (the fourth path): 6 supervised bf16 steps at
+     512x640, N=3, depth_nums (32, 16, 8): 6 sweep_warp (Vis convention)
+     and 6 sweep_warp_backward launches per step, no gwc or fused launch;
+     finite losses and gradients, the last loss below the first; the first
+     step's feature gradients against the exact gather's autograd; an eval
+     and a test step (gwc launches) and a checkpoint served by Predictor.
 
 Phase 1 also holds sweep_warp_backward to its plain version ([D], [D,H,W]
 and the behind-camera rig) and times it against torch's
-grid_sampler_2d_backward.
+grid_sampler_2d_backward, and holds the Vis-convention kernels (sweep_gwc,
+sweep_warp and sweep_warp_backward with the coordinate scale and clamp) to
+their plain versions at the Vis eval's stage-1 and stage-3 shapes, on a
+source under 21 px and on a rig partly behind the source camera, and times
+them.
 
 Prints the card, the kernels' register/spill summary and one line per
 phase, then a `kernels` JSON line and, last, the device JSON line.
@@ -48,12 +68,16 @@ import torch
 import torch.nn.functional as F
 
 from wildmvs_torch import _build
-from wildmvs_torch.data.synthetic import SyntheticMVSDataset, collate
+from wildmvs_torch.data.synthetic import (SyntheticMVSDataset, collate,
+                                          render_rig_plane)
 from wildmvs_torch.geometry.projective import build_proj_matrices, scale_K
 from wildmvs_torch.infer import Predictor
 from wildmvs_torch.models import mvsnet as mvsnet_module
+from wildmvs_torch.models import vis_mvsnet as vis_module
 from wildmvs_torch.ops import sweep_kernels as sk
-from wildmvs_torch.ops.plane_sweep import plane_sweep_warp
+from wildmvs_torch.ops.plane_sweep import (homography_sweep_warp,
+                                           plane_sweep_warp)
+from wildmvs_torch.ops.volumes import groupwise_correlation
 from wildmvs_torch.pipeline.depthmaps import run_depthmaps
 from wildmvs_torch.train import trainer as T
 from wildmvs_torch.train.checkpoint import save_checkpoint
@@ -70,6 +94,13 @@ DEPTH_RANGE = (425.0, 935.0)
 # the sweep backends' differences reach the depth
 PROB_GAIN = 100.0
 TRAIN_STEPS = 6
+VIS_ASSET = Path(__file__).resolve().parent / "assets" / \
+    "vis_synth_trained.npz"
+# the bench scene of the trained Vis network (bench.py:215-233)
+VIS_PLANE = dict(plane=(-30.0, 0.12, -0.08), extent=320.0, seed=0)
+VIS_EVAL_DEPTHS = (64, 32, 16)
+VIS_EVAL_SCALES = (2.0, 1.0, 0.5)
+VIS_STAGE_SCALE = (8, 4, 2)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -125,15 +156,45 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def live_samples(P, Q, s, h, w) -> int:
-    """Bilinear samples that read the source (the data-dependent work)."""
-    s = s[:, :, None, None] if s.dim() == 2 else s
-    r = P[:, :, None] * s[:, None] + Q[:, :, None]
-    pos = r[:, 2] > 0
-    z = torch.where(pos, r[:, 2], torch.ones_like(r[:, 2]))
-    x0 = torch.floor(r[:, 0] / z)
-    y0 = torch.floor(r[:, 1] / z)
-    live = pos & (x0 >= -1) & (x0 <= w - 1) & (y0 >= -1) & (y0 <= h - 1)
+def graph_ms(fn, reps: int = 50) -> float:
+    """Mean device time in ms of one fn() call: CUDA events around replays
+    of a CUDA graph that holds `reps` calls, so the kernels run back to
+    back, without the gaps of their Python launches (which set the pace of
+    an event-timed loop of kernels shorter than their launch)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
+
+
+def timed(fn):
+    """(graph-replayed ms, event-timed loop ms) of a kernel's wrapper call
+    (the wrapper's own small kernels, such as the backward's zero fill and
+    cast, included)."""
+    return graph_ms(fn), cuda_ms(fn, reps=50, warmup=5)
+
+
+def live_samples(P, Q, s, h, w, scale=sk.UNIT_SCALE, clamp=None) -> int:
+    """Bilinear samples that read the source (the data-dependent work), in
+    the sweep's convention."""
+    x, y = sk.source_coords(*sk._project(P, Q, s), scale, clamp)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    live = (x0 >= -1) & (x0 <= w - 1) & (y0 >= -1) & (y0 <= h - 1)
     return int(live.sum())
 
 
@@ -162,15 +223,18 @@ def compare(name, got, want, extra=""):
     return err
 
 
-def compare_backward(g, P, Q, s, src_hw, case):
+def compare_backward(g, P, Q, s, src_hw, case, scale=sk.UNIT_SCALE,
+                     clamp=None):
     """sweep_warp_backward against its plain version: the f32 accumulation
     within 1e-4 of the plain result's scale (the atomics add in an order
     that changes from run to run; f32 sums of at most a few hundred terms
     per element stay far below that), and the bf16 result within one bf16
     ulp (2^-7) of the scale. Returns (f32 error, bf16 error)."""
-    want = sk.sweep_warp_backward_plain(g, P, Q, s, src_hw)
-    got32 = sk.sweep_warp_backward(g, P, Q, s, src_hw, torch.float32)
-    got16 = sk.sweep_warp_backward(g, P, Q, s, src_hw)
+    want = sk.sweep_warp_backward_plain(g, P, Q, s, src_hw, scale, clamp)
+    got32 = sk.sweep_warp_backward(g, P, Q, s, src_hw, torch.float32,
+                                   scale=scale, clamp=clamp)
+    got16 = sk.sweep_warp_backward(g, P, Q, s, src_hw, scale=scale,
+                                   clamp=clamp)
     torch.cuda.synchronize()
     scale = max(want.abs().max().item(), 1e-6)
     err32 = (got32 - want).abs().max().item()
@@ -286,7 +350,7 @@ def phase1_kernels(dev):
     compare("sweep_warp per-pixel hypotheses", sk.sweep_warp(*a),
             sk.sweep_warp_plain(*a))
 
-    ms = cuda_ms(lambda: sk.sweep_warp(*warp_args), reps=50, warmup=5)
+    ms, events_ms = timed(lambda: sk.sweep_warp(*warp_args))
     plain_ms = cuda_ms(lambda: sk.sweep_warp_plain(*warp_args), reps=3,
                        warmup=1)
     # yardstick: torch's grid_sample over the same sampling grid
@@ -309,9 +373,10 @@ def phase1_kernels(dev):
         name="sweep_warp", route="cuda",
         source="wildmvs_torch/csrc/sweep.cu",
         replaces="wildmvs/ops/mosaic_sweep.py:143",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=library_ms)
-    print(f"phase1 sweep_warp: ms {ms:.4f} plain_ms {plain_ms:.3f} "
+        max_abs_err=err, ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+    print(f"phase1 sweep_warp: ms {ms:.4f} (events {events_ms:.4f}) "
+          f"plain_ms {plain_ms:.3f} "
           f"library_ms {library_ms:.4f} (bf16 grid_sample) "
           f"bound_ms {b_ms:.4f} ({b_by}) live samples {n_live}",
           flush=True)
@@ -326,7 +391,7 @@ def phase1_kernels(dev):
         compare_backward(g, P_, Q_, s_, (fh, fw), case)
     err32, _ = compare_backward(g, *warp_args[1:], (fh, fw), "[D] (timed)")
     bwd = (g, *warp_args[1:], (fh, fw))
-    ms = cuda_ms(lambda: sk.sweep_warp_backward(*bwd), reps=50, warmup=5)
+    ms, events_ms = timed(lambda: sk.sweep_warp_backward(*bwd))
     plain_ms = cuda_ms(lambda: sk.sweep_warp_backward_plain(*bwd), reps=3,
                        warmup=1)
     # yardstick: the input gradient of grid_sample over the same grid and
@@ -344,9 +409,10 @@ def phase1_kernels(dev):
         name="sweep_warp_backward", route="cuda",
         source="wildmvs_torch/csrc/sweep.cu",
         replaces="wildmvs/ops/mosaic_sweep.py:1930",
-        max_abs_err=err32, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=library_ms)
-    print(f"phase1 sweep_warp_backward: ms {ms:.4f} plain_ms {plain_ms:.3f}"
+        max_abs_err=err32, ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+    print(f"phase1 sweep_warp_backward: ms {ms:.4f} (events "
+          f"{events_ms:.4f}) plain_ms {plain_ms:.3f}"
           f" library_ms {library_ms:.4f} (bf16 grid_sampler_2d_backward) "
           f"bound_ms {b_ms:.4f} ({b_by}); 16-byte f32 atomics {runs} (one "
           f"thread per sample would issue {naive}), "
@@ -368,7 +434,7 @@ def phase1_kernels(dev):
     out = sk.fused_cost_volume(*a)
     err = compare("fused_cost_volume variance (timed)", out,
                   sk.fused_cost_volume_plain(*a))
-    ms = cuda_ms(lambda: sk.fused_cost_volume(*a), reps=50, warmup=5)
+    ms, events_ms = timed(lambda: sk.fused_cost_volume(*a))
     ms_softmin = cuda_ms(lambda: sk.fused_cost_volume(
         *fused_args[("softmin", "D")]), reps=50, warmup=5)
     plain_ms = cuda_ms(lambda: sk.fused_cost_volume_plain(*a), reps=3,
@@ -378,9 +444,10 @@ def phase1_kernels(dev):
         name="fused_cost_volume", route="cuda",
         source="wildmvs_torch/csrc/sweep.cu",
         replaces="wildmvs/ops/mosaic_sweep.py:811",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None)
-    print(f"phase1 fused_cost_volume: variance ms {ms:.4f} softmin ms "
+        max_abs_err=err, ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    print(f"phase1 fused_cost_volume: variance ms {ms:.4f} (events "
+          f"{events_ms:.4f}) softmin ms "
           f"{ms_softmin:.4f} plain_ms {plain_ms:.3f} bound_ms {b_ms:.4f} "
           f"({b_by}) live samples {n_live} library_ms none (no single "
           f"torch call aggregates the views)", flush=True)
@@ -694,6 +761,494 @@ def phase5_training(dev):
                         feature_grad_max_err=grad_err, **prof)
 
 
+# ---------------------------------------------------------------------------
+# Vis-MVSNet
+# ---------------------------------------------------------------------------
+
+_VIS_SCENES = {}
+
+
+def vis_scene(n: int, h: int, w: int, f: float):
+    """The bench scene of the trained Vis network: the DTU-like rig (seed 0)
+    with the textured plane of bench.py rendered into it. Returns the
+    Predictor arguments (numpy) and the per-view GT depths."""
+    key = (n, h, w, f)
+    if key not in _VIS_SCENES:
+        _, K, R, t, dmin, dmax = dtu_scene(0, n, h, w, f)
+        imgs, depths = render_rig_plane(K, R, t, h, w, **VIS_PLANE)
+        _VIS_SCENES[key] = (imgs, K, R, t, dmin, dmax), depths
+    return _VIS_SCENES[key]
+
+
+def vis_kernel_inputs(dev, cfg, stage, D, per_pixel, behind=False, v=1,
+                      C=32):
+    """Seeded bf16 features and the Vis sweep of one pair (view v against
+    view 0) at one cascade stage of the bench scene `cfg`: (src, ref, P, Q,
+    s, scale, clamp). Per-pixel hypotheses centre a slab of D stage
+    intervals on the plane's GT depth; per-plane ones span the whole depth
+    range. `behind` moves the source camera 600 mm ahead along the
+    reference axis, so the nearer hypotheses lie behind it."""
+    (_, K, R, t, dmin, dmax), depths = vis_scene(**cfg)
+    sc = VIS_STAGE_SCALE[stage - 1]
+    fh, fw = cfg["h"] // sc, cfg["w"] // sc
+    R, t = R.copy(), t.copy()
+    if behind:
+        R[v] = R[0]
+        t[v] = t[0] - np.array([[0.0], [0.0], [600.0]], np.float32)
+    Ks = scale_K(torch.from_numpy(K).to(dev), 1.0 / sc)
+    Rt, tt = torch.from_numpy(R).to(dev), torch.from_numpy(t).to(dev)
+    P, Q, scale, clamp = sk.vis_planes(
+        Ks[0:1], Rt[0:1], tt[0:1], Ks[v:v + 1], Rt[v:v + 1], tt[v:v + 1],
+        (fh, fw), (fh, fw))
+    interval = (DEPTH_RANGE[1] - DEPTH_RANGE[0]) / 128.0 * \
+        VIS_EVAL_SCALES[stage - 1]
+    steps = torch.arange(D, dtype=torch.float32, device=dev)
+    if per_pixel:
+        gt = torch.from_numpy(depths[0, ::sc, ::sc].copy()).to(dev)
+        start = gt[None, None] - D * interval / 2.0
+        s = sk.inverse_depths(start + interval * steps.reshape(1, D, 1, 1))
+    else:
+        span = (DEPTH_RANGE[1] - DEPTH_RANGE[0]) / (D - 1)
+        s = sk.inverse_depths(DEPTH_RANGE[0] + span * steps)[None]
+    rng = np.random.default_rng(stage)
+    src, ref = (torch.from_numpy(rng.standard_normal(
+        (1, fh, fw, C), dtype=np.float32)).to(dev, torch.bfloat16)
+        for _ in range(2))
+    return src, ref, P, Q, s.contiguous(), scale, clamp
+
+
+def vis_grid(P, Q, s, scale, clamp, h, w):
+    """grid_sample's normalized (align_corners=True) grid [1, D*H, W, 2]
+    bf16 of a Vis sweep: the yardstick's sampling positions."""
+    x, y = sk.source_coords(*sk._project(P, Q, s), scale, clamp)
+    D, H, W = x.shape[1:]
+    grid = torch.stack([x / ((w - 1) / 2.0) - 1.0,
+                        y / ((h - 1) / 2.0) - 1.0], -1)
+    return grid.reshape(1, D * H, W, 2).to(torch.bfloat16).contiguous()
+
+
+def gwc_library(src, ref, grid):
+    """The two-call torch reference of sweep_gwc: grid_sample over the
+    same grid, then the group-wise products and sums."""
+    _, h, w, C = src.shape
+    _, H, W, _ = ref.shape
+    warped = F.grid_sample(src.permute(0, 3, 1, 2), grid, mode="bilinear",
+                           padding_mode="zeros", align_corners=True)
+    warped = warped.reshape(1, C, -1, H, W).permute(0, 2, 3, 4, 1)
+    return groupwise_correlation(ref[:, None], warped, sk.GWC_GROUPS)
+
+
+def phase1_vis_kernels(dev, results):
+    """The Vis-convention kernels vs their plain versions: sweep_gwc at the
+    1184x1600 eval's stage-1 ([D], 148x200, D=64) and stage-3 ([D,H,W],
+    592x800, D=16) shapes, sweep_warp and sweep_warp_backward at the
+    512x640 training's stage-3 shape (256x320, D=8, [D,H,W]); a source
+    under 21 px (stage 1 of a 64x80 image, 8x10) and a rig partly behind
+    the source camera for all three. Adds the timings to `results`."""
+    ev = dict(n=5, h=EVAL["h"], w=EVAL["w"], f=EVAL["f"])
+    tr = dict(n=3, h=HEADLINE["h"], w=HEADLINE["w"], f=HEADLINE["f"])
+    small = dict(n=5, h=64, w=80, f=EVAL["f"] * 80 / EVAL["w"])
+    # (scene, stage, D, per-pixel, behind, source view); the 8x10 source
+    # is the widest pair (12 degrees) of its rig, so that samples leave it
+    cases = {"eval stage 1 [D]": (ev, 1, 64, False, False, 1),
+             "eval stage 3 [D,H,W]": (ev, 3, 16, True, False, 1),
+             "train stage 3 [D,H,W]": (tr, 3, 8, True, False, 1),
+             "source 8x10 [D]": (small, 1, 32, False, False, 4),
+             "behind-camera rig": (tr, 3, 8, False, True, 1)}
+    inputs = {}
+    for case, (cfg, stage, D, per_pixel, behind, v) in cases.items():
+        src, ref, P, Q, s, scale, clamp = inputs[case] = vis_kernel_inputs(
+            dev, cfg, stage, D, per_pixel, behind, v)
+        vis = (P, Q, s, scale, clamp)
+        err_gwc = compare(f"sweep_gwc {case}", sk.sweep_gwc(src, ref, *vis),
+                          sk.sweep_gwc_plain(src, ref, *vis))
+        if case.startswith("eval"):
+            continue
+        err_warp = compare(f"sweep_warp Vis {case}", sk.sweep_warp(src, *vis),
+                           sk.sweep_warp_plain(src, *vis))
+        g = torch.randn((1,) + tuple(s.shape[1:2]) + tuple(P.shape[2:])
+                        + (src.shape[-1],), device=dev,
+                        generator=torch.Generator(dev).manual_seed(2)).to(
+            torch.bfloat16)
+        err_bwd, _ = compare_backward(g, P, Q, s, tuple(src.shape[1:3]),
+                                      f"Vis {case}", scale, clamp)
+        if case == "behind-camera rig":
+            rz = sk._project(P, Q, s)[2]
+            share = (rz <= 0).float().mean().item()
+            print(f"phase1 Vis behind-camera share {share:.3f}", flush=True)
+            check(0.0 < share < 1.0, f"Vis behind share {share}")
+        if case.startswith("source"):
+            x, _ = sk.source_coords(*sk._project(P, Q, s), scale)
+            check(bool(((x < clamp[0]) | (x > clamp[1])).any()),
+                  "the small-source case never clamps")
+
+    # --- sweep_gwc timings: stage 3 (the largest) and stage 1 ---------------
+    times = {}
+    for case in ("eval stage 1 [D]", "eval stage 3 [D,H,W]"):
+        src, ref, P, Q, s, scale, clamp = inputs[case]
+        vis = (P, Q, s, scale, clamp)
+        _, h, w, C = src.shape
+        out = sk.sweep_gwc(src, ref, *vis)
+        err = compare(f"sweep_gwc {case} (timed)", out,
+                      sk.sweep_gwc_plain(src, ref, *vis))
+        ms, events_ms = timed(lambda: sk.sweep_gwc(src, ref, *vis))
+        plain_ms = cuda_ms(lambda: sk.sweep_gwc_plain(src, ref, *vis),
+                           reps=3, warmup=1)
+        grid = vis_grid(P, Q, s, scale, clamp, h, w)
+        library_ms = cuda_ms(lambda: gwc_library(src, ref, grid), reps=10,
+                             warmup=2)
+        n_live = live_samples(P, Q, s, h, w, scale, clamp)
+        D, H, W = out.shape[1:4]
+        b_ms, b_by = bound(nbytes(src, ref, P, Q, s, out),
+                           n_live * C * 10 + D * H * W * 20)
+        times[case] = dict(max_abs_err=err, ms=ms, events_ms=events_ms,
+                           plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=b_ms, bound_by=b_by)
+        print(f"phase1 sweep_gwc {case}: ms {ms:.4f} (events "
+              f"{events_ms:.4f}) plain_ms "
+              f"{plain_ms:.3f} library_ms {library_ms:.4f} (bf16 grid_sample"
+              f" + group sum, two calls) bound_ms {b_ms:.4f} ({b_by}) live "
+              f"samples {n_live}", flush=True)
+    results["sweep_gwc"] = dict(
+        name="sweep_gwc", route="cuda", source="wildmvs_torch/csrc/gwc.cu",
+        replaces="wildmvs/ops/mosaic_sweep.py:627",
+        **times["eval stage 3 [D,H,W]"],
+        stage1=times["eval stage 1 [D]"])
+
+    # --- Vis sweep_warp and its backward at the training's stage 3 ---------
+    src, ref, P, Q, s, scale, clamp = inputs["train stage 3 [D,H,W]"]
+    vis = (P, Q, s, scale, clamp)
+    _, h, w, C = src.shape
+    out = sk.sweep_warp(src, *vis)
+    ms, events_ms = timed(lambda: sk.sweep_warp(src, *vis))
+    plain_ms = cuda_ms(lambda: sk.sweep_warp_plain(src, *vis), reps=3,
+                       warmup=1)
+    grid = vis_grid(P, Q, s, scale, clamp, h, w)
+    src_nchw = src.permute(0, 3, 1, 2)
+    library_ms = cuda_ms(lambda: F.grid_sample(
+        src_nchw, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True), reps=20, warmup=2)
+    n_live = live_samples(P, Q, s, h, w, scale, clamp)
+    D = s.shape[1]
+    b_ms, b_by = bound(nbytes(src, P, Q, s, out),
+                       n_live * C * 8 + D * h * w * 20)
+    results["sweep_warp"]["vis"] = dict(
+        shape="256x320 C32 D8 [D,H,W]", ms=ms, events_ms=events_ms,
+        plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+        bound_by=b_by)
+    print(f"phase1 sweep_warp Vis train stage 3: ms {ms:.4f} (events "
+          f"{events_ms:.4f}) plain_ms "
+          f"{plain_ms:.3f} library_ms {library_ms:.4f} (bf16 grid_sample) "
+          f"bound_ms {b_ms:.4f} ({b_by})", flush=True)
+    g = torch.randn(out.shape, device=dev, generator=torch.Generator(
+        dev).manual_seed(3)).to(torch.bfloat16)
+    bwd = (g, P, Q, s, (h, w))
+    ms, events_ms = timed(lambda: sk.sweep_warp_backward(
+        *bwd, scale=scale, clamp=clamp))
+    plain_ms = cuda_ms(lambda: sk.sweep_warp_backward_plain(
+        *bwd, scale, clamp), reps=3, warmup=1)
+    g_nchw = g.reshape(1, D * h, w, C).permute(0, 3, 1, 2)
+    library_ms = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+        g_nchw, src_nchw, grid, 0, 0, True, [True, False]), reps=20,
+        warmup=2)
+    b_ms, b_by = bound(nbytes(g, P, Q, s) + h * w * C * 4,
+                       n_live * C * 8 + D * h * w * 20)
+    results["sweep_warp_backward"]["vis"] = dict(
+        shape="256x320 C32 D8 [D,H,W]", ms=ms, events_ms=events_ms,
+        plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+        bound_by=b_by)
+    print(f"phase1 sweep_warp_backward Vis train stage 3: ms {ms:.4f} "
+          f"(events {events_ms:.4f}) "
+          f"plain_ms {plain_ms:.3f} library_ms {library_ms:.4f} (bf16 "
+          f"grid_sampler_2d_backward) bound_ms {b_ms:.4f} ({b_by})",
+          flush=True)
+    return results
+
+
+def stage_forced(model, args, method):
+    """Run `model` with `method`, then each stage again through the exact
+    gather on the very inputs that stage received (features, cameras,
+    slab). Returns {stage: (method's cost volumes, gather's, method's
+    depth, gather's depth, the stage's hypothesis interval)}. Holding each
+    stage on its own inputs keeps the cascade's re-centring, which
+    amplifies any difference between two runs, out of the comparison."""
+    model.sweep_method = method
+    inputs, outputs, costs, hooks = {}, {}, {}, []
+    for i in (1, 2, 3):
+        st = getattr(model, f"stage{i}")
+        hooks += [
+            st.register_forward_pre_hook(
+                lambda m, a, i=i: inputs.__setitem__(i, a)),
+            st.register_forward_hook(
+                lambda m, a, o, i=i: outputs.__setitem__(i, o)),
+            st.reg.register_forward_pre_hook(
+                lambda m, a, i=i: costs.setdefault(i, []).append(a[0]))]
+    try:
+        with torch.inference_mode():
+            model(*args)
+            got = {}
+            for i in (1, 2, 3):
+                n_pairs = len(costs[i])
+                est, _, _ = getattr(model, f"stage{i}")(*inputs[i][:-1],
+                                                        "gather")
+                got[i] = (costs[i][:n_pairs], costs[i][n_pairs:],
+                          outputs[i][0], est,
+                          inputs[i][5].flatten()[0].item())
+    finally:
+        for hk in hooks:
+            hk.remove()
+        model.sweep_method = "auto"
+    return got
+
+
+def vis_agreement(pred, scene_args):
+    """Each stage of the kernel path against the exact gather on that
+    stage's own inputs: every pair's cost volume within bf16 rounding (max
+    0.03, mean 0.002 of its scale) and the stage-3 depth within one
+    stage-3 hypothesis interval on >= 95 % of pixels."""
+    dev = pred.device
+    args = [torch.as_tensor(np.asarray(a, np.float32), device=dev)[None]
+            for a in scene_args]
+    worst = {}
+    for stage, (cv, cv_g, est, est_g, interval) in stage_forced(
+            pred.model, args, "auto").items():
+        check(len(cv) == len(cv_g) > 0, f"stage {stage} pairs")
+        for i, (a, b) in enumerate(zip(cv, cv_g)):
+            a, b = a.float(), b.float()
+            scale = b.abs().max().item()
+            err = (a - b).abs()
+            mx, mean = err.max().item() / scale, err.mean().item() / scale
+            worst[stage] = max(worst.get(stage, 0.0), mx)
+            print(f"phase6 stage {stage} pair {i} cost volume vs gather: max "
+                  f"{mx:.5f} mean {mean:.6f} of the scale {scale:.4g}",
+                  flush=True)
+            check(mx <= 0.03 and mean <= 0.002,
+                  f"stage {stage} pair {i} cost volume disagrees with the "
+                  f"gather")
+        derr = (est.float() - est_g.float()).abs() / interval
+        within = (derr < 1).float().mean().item()
+        print(f"phase6 stage {stage} depth vs gather on the same inputs: "
+              f"mean {derr.mean().item():.4f} intervals ({interval:.4f} mm),"
+              f" {within:.4f} within 1, max {derr.max().item():.3f}",
+              flush=True)
+        if stage == 3:
+            check(within >= 0.95, f"stage-3 depth within one interval on "
+                  f"{within:.4f} of pixels")
+            worst["stage3_within_1"] = within
+            worst["stage3_mean_intervals"] = derr.mean().item()
+    return worst
+
+
+def phase6_vis_serving():
+    """Vis-MVSNet serving: the trained asset at 1184x1600 N5 through
+    sweep_gwc (12 launches a request), held to the gather; a random-weight
+    request; run_depthmaps."""
+    cfg = dict(n=5, h=EVAL["h"], w=EVAL["w"], f=EVAL["f"])
+    scene, depths = vis_scene(**cfg)
+    pred = Predictor(VIS_ASSET)
+    check(pred.architecture == "vis_mvsnet"
+          and pred.model.depth_nums == VIS_EVAL_DEPTHS, "Vis predictor")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    out, first_ms = request_ms(pred, scene)
+    times = [request_ms(pred, scene)[1] for _ in range(3)]
+    counts = sk.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase6 launches {json.dumps(counts)}", flush=True)
+    check(counts == {"sweep_warp": 0, "sweep_warp_backward": 0,
+                     "fused_cost_volume": 0, "sweep_gwc": 12 * 4},
+          f"Vis serving did not take 12 gwc launches a request: {counts}")
+    h2, w2 = EVAL["h"] // 2, EVAL["w"] // 2
+    check(out["depth"].shape == (h2, w2)
+          and out["confidence"].shape == (3, h2, w2)
+          and np.isfinite(out["depth"]).all()
+          and np.isfinite(out["confidence"]).all(), "bad Vis output")
+    gt = depths[0, ::2, ::2]
+    interval3 = (DEPTH_RANGE[1] - DEPTH_RANGE[0]) / 128.0 * VIS_EVAL_SCALES[2]
+    gt_err = np.abs(out["depth"] - gt) / interval3
+    print(f"phase6 Vis serving 1184x1600 N5 (64,32,16) bf16 gwc, trained "
+          f"asset: ms per depthmap first {first_ms:.3f} then "
+          f"{[round(t, 3) for t in times]} (median {np.median(times):.3f});"
+          f" peak memory {peak / 2**30:.3f} GiB; depth vs the plane's GT: "
+          f"median {np.median(gt_err):.3f} stage-3 intervals "
+          f"({interval3:.4f} mm); confidence means "
+          f"{[round(float(c.mean()), 3) for c in out['confidence']]}",
+          flush=True)
+    worst = vis_agreement(pred, scene)
+    gather = Predictor(VIS_ASSET, sweep_method="gather")
+    out_g, gather_ms = request_ms(gather, scene)
+    gather_ms = request_ms(gather, scene)[1]
+    e2e = np.abs(out["depth"] - out_g["depth"]) / interval3
+    print(f"phase6 end to end vs the gather path (each cascade on its own "
+          f"slabs, reported only): mean {e2e.mean():.3f} intervals, "
+          f"{(e2e < 1).mean():.4f} within 1; gather request ms "
+          f"{gather_ms:.3f}", flush=True)
+    del gather
+    prof = profile_step(lambda: pred(*scene), "phase6")
+
+    n0 = sk.sweep_gwc.launches
+    rand = Predictor(architecture="vis_mvsnet")
+    out_r = rand(*scene)
+    check(sk.sweep_gwc.launches == n0 + 12 and np.isfinite(out_r["depth"])
+          .all(), "random-weight Vis request")
+    samples = []
+    for i in range(2):
+        (imgs, K, R, t, dmin, dmax), _ = vis_scene(
+            n=3, h=HEADLINE["h"], w=HEADLINE["w"], f=HEADLINE["f"])
+        samples.append(dict(imgs=imgs, K=K, R=R, t=t, depth_min=dmin,
+                            depth_max=dmax, filename=f"scan2/{i:08d}"))
+    with tempfile.TemporaryDirectory() as tmp:
+        run_depthmaps(samples, pred.model, tmp)
+        files = sorted(q.name for q in Path(tmp).iterdir())
+        check(files == ["finished.txt", "scan2_00000000_out.npz",
+                        "scan2_00000001_out.npz"], f"files {files}")
+        for f in files[1:]:
+            with np.load(Path(tmp) / f) as z:
+                check(z["probability"].shape == (3, HEADLINE["h"] // 2,
+                                                 HEADLINE["w"] // 2)
+                      and np.isfinite(z["depthmap"]).all(), f"bad {f}")
+    print(f"phase6 random-weight request depth mean "
+          f"{out_r['depth'].mean():.2f}; run_depthmaps: {files}", flush=True)
+    return counts, dict(
+        first_request_ms=first_ms, request_ms=times,
+        request_ms_median=float(np.median(times)), gather_request_ms=gather_ms,
+        peak_gib=peak / 2 ** 30, agreement=worst,
+        depth_vs_gt_median_intervals=float(np.median(gt_err)),
+        end_to_end_vs_gather_mean_intervals=float(e2e.mean()), **prof)
+
+
+def record_vis_warps(model, rec: list):
+    """Patch the Vis model's sweep_warp to keep, while `rec` is not None,
+    each call's source, the gradient of its output (g) and of its source
+    (df), and each stage's inputs (cameras and slab) to rebuild the exact
+    gather. Returns the undo."""
+    real = vis_module.sweep_warp
+    stages = {}
+
+    def recording(src, P, Q, s, scale, clamp):
+        out = real(src, P, Q, s, scale, clamp)
+        entry = {"src": src.detach()}
+        out.register_hook(lambda g: entry.__setitem__("g", g))
+        src.register_hook(lambda df: entry.__setitem__("df", df))
+        rec.append(entry)
+        return out
+
+    hooks = [getattr(model, f"stage{i}").register_forward_pre_hook(
+        lambda m, a, i=i: stages.setdefault(i, a)) for i in (1, 2, 3)]
+    vis_module.sweep_warp = recording
+
+    def undo():
+        vis_module.sweep_warp = real
+        for hk in hooks:
+            hk.remove()
+    return undo, stages
+
+
+def vis_gradient_agreement(rec, stages):
+    """The Vis warp kernel's source-feature gradients (first step) against
+    the exact gather's autograd (homography_sweep_warp in f32) at the same
+    cotangent: max <= 2^-7, mean <= 2^-9 of the gradient's scale."""
+    worst = 0.0
+    n_src = len(rec) // 3
+    for j, e in enumerate(rec):
+        stage, i = j // n_src + 1, j % n_src
+        _, _, cams, D, start, interval, s_scale, _ = stages[stage]
+        K = scale_K(cams["K"].float(), 1.0 / s_scale)
+        R, t = cams["R"].float(), cams["t"].float()
+        src = e["src"].float().requires_grad_()
+        hw = tuple(stages[stage][0].shape[1:3])
+        warped = homography_sweep_warp(
+            src, K[:, 0], R[:, 0], t[:, 0], K[:, i + 1], R[:, i + 1],
+            t[:, i + 1], D, start, interval, hw)
+        (want,) = torch.autograd.grad(warped, src, e["g"].float())
+        err = (e["df"].float() - want).abs()
+        scale = want.abs().max().item()
+        print(f"phase7 feature gradient stage {stage} pair {i}: kernel vs "
+              f"gather max {err.max().item():.6g} mean {err.mean().item():.6g}"
+              f" (scale {scale:.4g})", flush=True)
+        check(scale > 0 and err.max().item() <= 2 ** -7 * scale
+              and err.mean().item() <= 2 ** -9 * scale,
+              f"stage {stage} pair {i}: the kernel's feature gradient "
+              f"disagrees with the gather's")
+        worst = max(worst, err.max().item() / scale)
+    return worst
+
+
+def phase7_vis_training(dev):
+    """Vis-MVSNet training: 6 bf16 steps at 512x640 N3 through the Vis
+    warp kernel and its backward; eval and test steps; a checkpoint."""
+    cfg = TrainConfig(architecture="vis_mvsnet", dataset="synthetic",
+                      lr=1e-3, train_dtype="bfloat16")
+    ds = SyntheticMVSDataset(num_samples=1, num_views=HEADLINE["n"],
+                             height=HEADLINE["h"], width=HEADLINE["w"])
+    sample = collate([ds[0]])
+    batch = T.batch_to_device(sample, dev)
+    state = T.create_train_state(cfg, dev)
+    params = list(state.model.parameters())
+    check(all(p.dtype == torch.float32 for p in params),
+          "Vis training parameters are not f32")
+    rec = []
+    undo, stages = record_vis_warps(state.model, rec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = T.train_step(state, batch, cfg)
+        grads_finite = torch.stack([torch.isfinite(p.grad).all()
+                                    for p in params]).all()
+        losses.append(m["train_loss"].item())
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(bool(grads_finite), f"Vis step {i}: a gradient is not finite")
+        if i == 0:
+            undo()
+    counts = sk.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase7 launches {json.dumps(counts)}", flush=True)
+    per_step = 3 * (HEADLINE["n"] - 1)
+    check(counts == {"sweep_warp": per_step * TRAIN_STEPS,
+                     "sweep_warp_backward": per_step * TRAIN_STEPS,
+                     "fused_cost_volume": 0, "sweep_gwc": 0},
+          f"Vis training did not take the warp kernels: {counts}")
+    check(len(rec) == per_step and all("df" in e and "g" in e for e in rec),
+          "the first Vis step's warps were not recorded")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"Vis losses {losses}")
+    steady = float(np.median(times[1:]))
+    print(f"phase7 Vis training 512x640 N3 (32,16,8) bf16 (f32 parameters):"
+          f" losses {[round(x, 4) for x in losses]}; ms per step first "
+          f"{times[0]:.3f} then {[round(t, 3) for t in times[1:]]} (median "
+          f"{steady:.3f}); peak memory {peak / 2**30:.3f} GiB", flush=True)
+    grad_err = vis_gradient_agreement(rec, stages)
+    del rec, stages
+    prof = profile_step(lambda: T.train_step(state, batch, cfg), "phase7")
+
+    n0 = sk.sweep_gwc.launches
+    val = T.eval_step(state, batch, cfg)["val_loss"].item()
+    test = {k: v.item() for k, v in T.test_step(state, batch, cfg).items()}
+    check(sk.sweep_gwc.launches == n0 + 2 * per_step,
+          "Vis eval and test steps skipped the gwc kernel")
+    check(np.isfinite(val) and all(np.isfinite(list(test.values()))),
+          f"Vis eval {val} test {test}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = save_checkpoint(tmp, 0, state, cfg.architecture)
+        pred = Predictor(ckpt)
+        out = pred(*(sample[k][0] for k in ("imgs", "K", "R", "t",
+                                            "depth_min", "depth_max")))
+    check(out["depth"].shape == (HEADLINE["h"] // 2, HEADLINE["w"] // 2)
+          and np.isfinite(out["depth"]).all(),
+          "the trained Vis checkpoint served a bad depthmap")
+    print(f"phase7 eval_step val_loss {val:.4f}; test_step {test}; "
+          f"checkpoint served: depth mean {out['depth'].mean():.3f}",
+          flush=True)
+    return (counts, dict(
+        losses=losses, first_step_ms=times[0], step_ms_median=steady,
+        step_ms=times, peak_gib=peak / 2 ** 30, val_loss=val, test=test,
+        feature_grad_max_rel_err=grad_err, **prof))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -718,27 +1273,36 @@ def main() -> int:
         if re.search(r"registers|spill|Compiling entry", line):
             print(f"ptxas: {line.strip()}", flush=True)
 
-    kernels = phase1_kernels(dev)
+    kernels = phase1_vis_kernels(dev, phase1_kernels(dev))
+    kernels["sweep_warp"]["replaces"] = \
+        "wildmvs/ops/mosaic_sweep.py:143 and :298"
     pred, counts, serving = phase2_serving()
     evals = phase3_eval(pred, dev)
     phase4_depthmaps(pred)
     del pred
     torch.cuda.empty_cache()
     train_counts, training = phase5_training(dev)
+    torch.cuda.empty_cache()
+    vis_counts, vis_serving = phase6_vis_serving()
+    torch.cuda.empty_cache()
+    vis_train_counts, vis_training = phase7_vis_training(dev)
 
-    # launches: the serving path's (phase 2) plus the training path's
-    # (phase 5), each counted from 0 just before its run
+    # launches: each path's own, counted from 0 just before its run
+    paths = {"mvsnet_serving": counts, "mvsnet_training": train_counts,
+             "vis_serving": vis_counts, "vis_training": vis_train_counts}
     for name, k in kernels.items():
-        k["launches_by_path"] = {"serving": counts[name],
-                                 "training": train_counts[name]}
-        k["launches"] = counts[name] + train_counts[name]
+        k["launches_by_path"] = {p: c[name] for p, c in paths.items()}
+        k["launches"] = sum(c[name] for c in paths.values())
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_by_path"]
-    print(json.dumps({"kernels": [{k: v[k] for k in keys}
+            "ms", "events_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "launches_by_path"]
+    extra = ["vis", "stage1"]
+    print(json.dumps({"kernels": [{k: v[k] for k in keys + extra if k in v}
                                   for v in kernels.values()],
                       "serving": serving, "eval": evals,
-                      "training": training, "card": card}), flush=True)
+                      "training": training, "vis_serving": vis_serving,
+                      "vis_training": vis_training, "card": card}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

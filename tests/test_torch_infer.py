@@ -137,7 +137,7 @@ def test_checkpoint_formats(tmp_path, variance_weights):
     with pytest.raises(NotImplementedError, match="orbax"):
         Predictor(tmp_path, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eval_model_kwargs("vis_mvsnet")
+        eval_model_kwargs("cvp_mvsnet")
     with pytest.raises(ValueError, match="architecture"):
         Predictor(device="cpu")
 
@@ -181,4 +181,6 @@ def test_port_imports_neither_jax_nor_wildmvs():
             "wildmvs_torch.train.checkpoint", "wildmvs_torch.train.config",
             "wildmvs_torch.train.metrics", "wildmvs_torch.losses.supervised",
             "wildmvs_torch.data.synthetic",
-            "wildmvs_torch.utils.monitor"} <= names
+            "wildmvs_torch.utils.monitor", "wildmvs_torch.models.vis_mvsnet",
+            "wildmvs_torch.nn.blocks", "wildmvs_torch.ops.plane_sweep",
+            "wildmvs_torch.ops.volumes"} <= names

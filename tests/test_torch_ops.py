@@ -195,3 +195,104 @@ def test_depth_regression_and_confidence_match_jax():
     # by the JAX cumsum-difference rounding (~1e-7)
     np.testing.assert_allclose(conf_t, conf_j, atol=1e-6)
     assert conf_t.min() >= 0 and conf_t.max() <= 1 + 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the Vis-MVSNet half: homographies, homography warps, group-wise
+# correlation, soft-argmin with its window, entropy
+# ---------------------------------------------------------------------------
+
+def vis_cams(h, w, yaw=0.03, baseline=(1.5, 0.3, 0.2), f=50.0):
+    """(K_ref, R_ref, t_ref, K_src, R_src, t_src) [1, ...] f32 numpy."""
+    Ry = np.array([[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0],
+                   [-np.sin(yaw), 0, np.cos(yaw)]], np.float32)
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float32)
+    return (K[None], np.eye(3, dtype=np.float32)[None],
+            np.zeros((1, 3, 1), np.float32), K[None], Ry[None],
+            np.asarray(baseline, np.float32).reshape(1, 3, 1))
+
+
+@pytest.mark.parametrize("per_pixel", [False, True], ids=["D", "DHW"])
+@pytest.mark.parametrize("inverse_depth", [False, True])
+def test_homographies_and_homography_warp_match_jax(per_pixel,
+                                                     inverse_depth):
+    h, w, c, D = 12, 16, 4, 5
+    rng = np.random.default_rng(23)
+    cams = vis_cams(h, w)
+    start = (np.full((1, 1, 1, 1), 30.0) if not per_pixel else
+             30.0 + rng.uniform(-3, 3, (1, 1, h, w))).astype(np.float32)
+    interval = np.full((1, 1, 1, 1), 2.5, np.float32)
+    want = np.asarray(jps.get_homographies(
+        *map(jnp.asarray, cams), D, jnp.asarray(start),
+        jnp.asarray(interval), inverse_depth=inverse_depth))
+    got = tps.get_homographies(*map(torch.from_numpy, cams), D,
+                               torch.from_numpy(start),
+                               torch.from_numpy(interval),
+                               inverse_depth=inverse_depth).numpy()
+    assert got.shape == want.shape
+    # f32 3x3 products in another order: ~1e-6 relative
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+    # warp by the homography of one hypothesis ([B,3,3] or per pixel)
+    src = rng.standard_normal((1, h, w, c)).astype(np.float32)
+    H = want[:, 2, 0, 0] if not per_pixel else want[:, 2]
+    jw = np.asarray(jps.homography_warp(jnp.asarray(src), jnp.asarray(H)))
+    tw = tps.homography_warp(torch.from_numpy(src),
+                             torch.from_numpy(H.copy())).numpy()
+    assert (np.abs(jw) > 0).mean() > 0.5
+    np.testing.assert_allclose(tw, jw, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("per_pixel", [False, True], ids=["D", "DHW"])
+def test_homography_sweep_warp_matches_jax(per_pixel, monkeypatch):
+    """The f32 Vis gather sweep, whole and in depth slabs, against JAX."""
+    h, w, c, D = 10, 14, 8, 6
+    rng = np.random.default_rng(24)
+    cams = vis_cams(h, w, baseline=(2.0, 0.4, 0.0))
+    start = (np.full((1, 1, 1, 1), 25.0) if not per_pixel else
+             25.0 + rng.uniform(-2, 2, (1, 1, h, w))).astype(np.float32)
+    interval = np.full((1, 1, 1, 1), 1.5, np.float32)
+    src = rng.standard_normal((1, h, w, c)).astype(np.float32)
+    want = np.asarray(jps.homography_sweep_warp(
+        jnp.asarray(src), *map(jnp.asarray, cams), D, jnp.asarray(start),
+        jnp.asarray(interval), (h, w)))
+    args = (torch.from_numpy(src), *map(torch.from_numpy, cams), D,
+            torch.from_numpy(start), torch.from_numpy(interval), (h, w))
+    got = tps.homography_sweep_warp(*args).numpy()
+    assert (np.abs(want) > 0).mean() > 0.5
+    # f32 throughout: ~1e-6 relative coordinate rounding
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    monkeypatch.setattr(tps, "GATHER_CHUNK_BYTES", 1)   # one plane a slab
+    np.testing.assert_array_equal(tps.homography_sweep_warp(*args).numpy(),
+                                  got)
+    # the grid carries no gradient, the features do
+    x = args[0].clone().requires_grad_()
+    tps.homography_sweep_warp(x, *args[1:]).sum().backward()
+    assert x.grad.abs().sum() > 0
+
+
+@pytest.mark.parametrize("window", [None, 2])
+def test_groupwise_correlation_soft_argmin_entropy_match_jax(window):
+    rng = np.random.default_rng(25)
+    a = rng.standard_normal((1, 4, 3, 5, 32)).astype(np.float32)
+    b = rng.standard_normal((1, 4, 3, 5, 32)).astype(np.float32)
+    np.testing.assert_allclose(
+        tvol.groupwise_correlation(torch.from_numpy(a), torch.from_numpy(b),
+                                   8).numpy(),
+        np.asarray(jvol.groupwise_correlation(a, b, 8)), rtol=1e-6,
+        atol=1e-5)
+    score = (4.0 * rng.standard_normal((2, 9, 6, 7))).astype(np.float32)
+    want = jvol.soft_argmin(jnp.asarray(score), window=window)
+    got = tvol.soft_argmin(torch.from_numpy(score), window=window)
+    assert len(got) == len(want) == (2 if window is None else 3)
+    for g, w_ in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w_), rtol=1e-5,
+                                   atol=1e-6)
+    prob = got[0]
+    np.testing.assert_allclose(
+        tvol.entropy(prob, axis=1).numpy(),
+        np.asarray(jvol.entropy(jnp.asarray(prob.numpy()), axis=1)),
+        rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="groups"):
+        tvol.groupwise_correlation(torch.from_numpy(a), torch.from_numpy(b),
+                                   5)

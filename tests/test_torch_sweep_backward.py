@@ -6,7 +6,9 @@ f32 `index_add_` scatter over the four bilinear corners, the exact
 transpose of the plain forward. It is held to the JAX package's custom VJP
 `plane_sweep_warp_mosaic` and scatter kernel `mosaic_scatter_px`, run by the
 Pallas interpreter (bf16 weights, f32 accumulation), and to the f32 transpose
-of the JAX gather (`jax.linear_transpose` of `grid_sample_xy`). The CUDA
+of the JAX gather (`jax.linear_transpose` of `grid_sample_xy`), in both sweep
+conventions (Vis-MVSNet: `mosaic_scatter_px` with (sx, sy), `jax.vjp` of
+`homography_sweep_warp`). The CUDA
 kernel is compared with the plain version on the card (the `gpu`-marked
 test in tests/test_torch_sweep_kernels.py and chip_smoke.py).
 """
@@ -21,7 +23,8 @@ from wildmvs.ops.grid_sample import grid_sample_xy
 from wildmvs.ops.mosaic_sweep import (_plan_fit_scatter, _warp_mosaic_bwd,
                                       mosaic_scatter_px, mvsnet_planes,
                                       sweep_spans_px)
-from wildmvs.ops.plane_sweep import sweep_grid_xy
+from wildmvs.ops.mosaic_sweep import vis_planes as jax_vis_planes
+from wildmvs.ops.plane_sweep import homography_sweep_warp, sweep_grid_xy
 from wildmvs_torch.ops import sweep_kernels as sk
 from wildmvs_torch.ops import volumes
 
@@ -269,7 +272,7 @@ def test_backward_wrapper_checks_and_counts_nothing_on_the_cpu():
     g = torch.zeros((1, 4, H, W, C), dtype=torch.bfloat16)
     before = sk.launch_counts()
     assert set(before) == {"sweep_warp", "sweep_warp_backward",
-                           "fused_cost_volume"}
+                           "fused_cost_volume", "sweep_gwc"}
     df = sk.sweep_warp_backward(g, P, Q, s, (5, 7))
     assert df.shape == (1, 5, 7, C) and df.dtype == torch.bfloat16
     assert sk.launch_counts() == before
@@ -277,3 +280,97 @@ def test_backward_wrapper_checks_and_counts_nothing_on_the_cpu():
         sk.sweep_warp_backward(g.float(), P, Q, s, (5, 7))
     with pytest.raises(ValueError, match="does not match"):
         sk.sweep_warp_backward(g[:, :3], P, Q, s, (5, 7))
+
+
+# ---------------------------------------------------------------------------
+# the Vis-MVSNet convention: the scatter with the (sx, sy) scale and clamp
+# ---------------------------------------------------------------------------
+
+VH, VW = 32, 48
+
+
+def vis_sweep(case, D=6):
+    """numpy cams, slab and sizes of one Vis sweep, and the port's (P, Q,
+    s, scale, clamp)."""
+    ref_hw = src_hw = (VH, VW)
+    yaw, base, f, start, step = 0.02, (2.0, 0.5, 0.0), 60.0, 425.0, 40.0
+    if case == "small-source":
+        ref_hw = src_hw = (8, 10)
+        yaw, base, f, start, step = 0.3, (6.0, 1.0, 0.0), 12.0, 20.0, 2.0
+    elif case == "behind-camera":
+        # 600 units ahead: hypotheses 425..925 lie partly behind the source
+        base, step = (2.0, 0.5, -600.0), 100.0
+    h, w = ref_hw
+    Ry = np.array([[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0],
+                   [-np.sin(yaw), 0, np.cos(yaw)]], np.float32)
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float32)
+    cams = (K[None], np.eye(3, dtype=np.float32)[None],
+            np.zeros((1, 3, 1), np.float32), K[None], Ry[None],
+            np.asarray(base, np.float32).reshape(1, 3, 1))
+    if case == "DHW" or case == "small-source":
+        s0 = (start + 30.0 * np.sin(np.linspace(0, 3, h * w))).reshape(
+            1, 1, h, w).astype(np.float32)
+    else:
+        s0 = np.full((1, 1, 1, 1), start, np.float32)
+    interval = np.full((1, 1, 1, 1), step, np.float32)
+    P, Q, scale, clamp = sk.vis_planes(*map(torch.from_numpy, cams), ref_hw,
+                                       src_hw)
+    depth = (torch.from_numpy(s0) + torch.from_numpy(interval)
+             * torch.arange(D, dtype=torch.float32).reshape(1, D, 1, 1))
+    s = sk.inverse_depths(depth)
+    s = s[:, :, 0, 0] if s0.size == 1 else s.contiguous()
+    return cams, s0, interval, ref_hw, src_hw, (P, Q, s, scale, clamp)
+
+
+@pytest.mark.parametrize("case", ["D", "DHW", "small-source",
+                                  "behind-camera"])
+def test_vis_warp_vjp_matches_pallas_scatter_and_jax_vjp(case):
+    """sweep_warp's autograd in the Vis convention (the plain scatter with
+    the coordinate scale and clamp) against jax.vjp of the JAX f32
+    homography_sweep_warp and, where the JAX package runs its kernel (a
+    source of 21 px or more whose plan fits), against mosaic_scatter_px
+    with (sx, sy) in the Pallas interpreter."""
+    D = 6
+    rng = np.random.default_rng(29)
+    cams, s0, interval, ref_hw, src_hw, (P, Q, s, scale, clamp) = \
+        vis_sweep(case, D)
+    src = rng.standard_normal((1,) + src_hw + (C,)).astype(np.float32)
+    g = jnp.asarray(rng.standard_normal((1, D) + ref_hw + (C,)),
+                    jnp.bfloat16)
+    g32 = np.asarray(g, np.float32)
+    _, vjp = jax.vjp(lambda f: homography_sweep_warp(
+        f, *map(jnp.asarray, cams), D, jnp.asarray(s0),
+        jnp.asarray(interval), ref_hw), jnp.asarray(src))
+    truth = np.asarray(vjp(jnp.asarray(g32))[0])
+
+    x = torch.from_numpy(src).to(torch.bfloat16).requires_grad_()
+    out = sk.sweep_warp(x, P, Q, s, scale, clamp)
+    out.backward(torch.from_numpy(g32).to(torch.bfloat16))
+    df32 = sk.sweep_warp_backward(torch.from_numpy(g32).to(torch.bfloat16),
+                                  P, Q, s, src_hw, torch.float32,
+                                  scale=scale, clamp=clamp)[0].numpy()
+    scale_g = max(1.0, np.abs(truth).max())
+    assert (np.abs(truth) > 0).mean() > 0.1
+    if case == "behind-camera":
+        assert 0 < (sk._project(P, Q, s)[2] <= 0).float().mean() < 1
+    # the f32 accumulation against the f32 transpose: summation order and
+    # ~1e-5 px coordinate differences of the normalized grid round trip
+    np.testing.assert_allclose(df32, truth[0], rtol=1e-4,
+                               atol=1e-4 * scale_g)
+    # autograd returns that accumulation rounded once to bf16
+    torch.testing.assert_close(x.grad[0], torch.from_numpy(df32).to(
+        torch.bfloat16), rtol=0, atol=0)
+    if case in ("D", "DHW"):
+        Pj, Qj, sx, sy = jax_vis_planes(*(jnp.asarray(c[0]) for c in cams),
+                                        ref_hw, src_hw)
+        sv = jnp.asarray(s[0].numpy())
+        plan = sweep_spans_px(Pj, Qj, sv, src_hw, sx=sx, sy=sy)
+        assert bool(_plan_fit_scatter(plan, 2))
+        pallas = np.asarray(mosaic_scatter_px(g[0], Pj, Qj, sv, plan, src_hw,
+                                              sx=sx, sy=sy, interpret=True),
+                            np.float32)
+        # the Pallas kernel takes bf16 bilinear weights (mosaic_sweep.py
+        # :1961-1964): the bound tests/test_mosaic_sweep.py holds it to
+        assert np.abs(df32 - pallas).max() < 0.02 * scale_g
+        assert np.abs(df32 - truth[0]).max() <= \
+            np.abs(pallas - truth[0]).max() + 1e-6

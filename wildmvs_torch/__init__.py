@@ -6,13 +6,18 @@ package so each counterpart is easy to find:
 
   geometry/projective.py   build_proj_matrices, scale_K, pixel_grid
   ops/grid_sample.py       border-zero bilinear sampling
-  ops/plane_sweep.py       the exact f32 gather sweep (the reference path)
-  ops/volumes.py           variance/softmin aggregation, depth regression
+  ops/plane_sweep.py       the exact gather sweeps, MVSNet and Vis-MVSNet
+                           conventions (the reference path)
+  ops/volumes.py           variance/softmin aggregation, depth regression,
+                           group-wise correlation, soft-argmin, entropy
   ops/sweep_kernels.py     the Hopper kernels' wrappers + plain versions,
-                           the warp's autograd (SweepWarpFn)
-  csrc/sweep.cu            the hand-written CUDA kernels (built on first use)
-  nn/blocks.py             ConvBnReLU / ConvTransposeBnReLU
-  models/                  api (registry) + MVSNet (eval and train forward)
+                           the warp's autograd (SweepWarpFn), the planes
+  csrc/                    the hand-written CUDA kernels (sweep.cu,
+                           gwc.cu, sampler.cuh; built on first use)
+  nn/blocks.py             ConvBnReLU / ConvTransposeBnReLU, BasicBlock /
+                           ResLayer / UNet
+  models/                  api (registry), MVSNet and Vis-MVSNet (eval and
+                           train forward)
   losses/supervised.py     supervised depth losses, resize_bilinear
   data/synthetic.py        SyntheticMVSDataset, collate
   train/                   config, trainer (steps), metrics, checkpoint,

@@ -1,9 +1,10 @@
 // Plane-sweep kernels for Hopper (sm_90a): the per-view warp and its
-// transpose (the MVSNet training forward and backward) and the fused
-// multi-view cost volume of the depthmap forward.
+// transpose (the MVSNet and Vis-MVSNet training forward and backward) and
+// the fused multi-view cost volume of the MVSNet depthmap forward.
 //
-// Each replaces a Pallas TPU kernel of wildmvs/ops/mosaic_sweep.py:
+// Each replaces Pallas TPU kernels of wildmvs/ops/mosaic_sweep.py:
 //   wm_sweep_warp           <- _kernel / mosaic_sweep_warp        (:143-270)
+//                              _kernel_px / mosaic_sweep_warp_px  (:298-624)
 //   wm_sweep_warp_backward  <- _kernel_scatter_px / mosaic_scatter_px
 //                                                                (:1930-2088)
 //   wm_fused_cost_volume    <- _kernel_fused / fused_cost_volume_px (:811-1117)
@@ -12,15 +13,9 @@
 // window tiers and exact-gather fallbacks have no counterpart here, and
 // the kernels are exact for any rig geometry.
 //
-// One projection form serves all three: for reference pixel (y, x) and
-// hypothesis s (a depth; per plane [D] or per pixel [D, H, W]),
-//   (rx, ry, rz) = P[:, y, x] * s + Q[:, y, x],   coords = (rx, ry) / rz,
-// in source pixel units (MVSNet integer grid). rz <= 0 (behind the camera)
-// samples nothing. Bilinear, border-zero: a sample is live when
-// floor(x) in [-1, w-1] and floor(y) in [-1, h-1], and a corner outside the
-// image reads zero. Coordinates (rounded as the plain PyTorch versions
-// round them, proj1), weights and the combine are f32; features are bf16 in
-// memory; outputs are rounded once to bf16 (round to nearest even).
+// The projection, the coordinate convention (MVSNet or Vis-MVSNet) and the
+// bilinear border-zero sampler are sampler.cuh's. Outputs are rounded once
+// to bf16 (round to nearest even).
 //
 // Layout: features channels-last [.., h, w, C] bf16; outputs [B, D, H, W, C]
 // bf16. One thread owns one (d, y, x, 8-channel group): a group is one
@@ -32,91 +27,29 @@
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() so the caller can raise on a refused launch.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sampler.cuh"
 
 namespace {
 
-constexpr int kVec = 8;         // bf16 channels per thread (16 bytes)
-constexpr int kThreads = 256;   // threads per block
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[kVec]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < kVec / 2; ++i) {
-    const float2 f = __bfloat1622float2(h2[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[kVec]) {
-  uint4 raw;
-  __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < kVec / 2; ++i)
-    h2[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = raw;
-}
-
-// One coordinate of the projective point, p * s + q, rounded after the
-// product and after the sum (no fused multiply-add), as the plain PyTorch
-// versions compute it: near the camera plane (rz ~ 0) one rounding more or
-// less moves the sample visibly, and the kernels must match them there.
-__device__ __forceinline__ float proj1(float p, float s, float q) {
-  return __fadd_rn(__fmul_rn(p, s), q);
-}
-
-// Bilinear border-zero sample of channels [c0, c0+8) of img [h, w, C] at
-// the projective point (rx, ry, rz); adds the result into acc.
-__device__ __forceinline__ void sample8(const __nv_bfloat16* __restrict__ img,
-                                        int h, int w, int C, int c0,
-                                        float rx, float ry, float rz,
-                                        float acc[kVec]) {
-  if (!(rz > 0.f)) return;                    // behind the camera
-  const float x = rx / rz;
-  const float y = ry / rz;
-  const float x0f = floorf(x);
-  const float y0f = floorf(y);
-  if (!(x0f >= -1.f && x0f <= (float)(w - 1) &&
-        y0f >= -1.f && y0f <= (float)(h - 1)))
-    return;                                   // no corner inside (or NaN)
-  const float fx = x - x0f;
-  const float fy = y - y0f;
-  const int x0 = (int)x0f;
-  const int y0 = (int)y0f;
-  const float wts[4] = {(1.f - fy) * (1.f - fx), (1.f - fy) * fx,
-                        fy * (1.f - fx), fy * fx};
-  float v[4][kVec];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int xi = x0 + (k & 1);
-    const int yi = y0 + (k >> 1);
-    if (xi >= 0 && xi < w && yi >= 0 && yi < h) {
-      load8(img + ((size_t)yi * w + xi) * C + c0, v[k]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) v[k][i] = 0.f;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) acc[i] += wts[k] * v[k][i];
-}
+using wm::Convention;
+using wm::kThreads;
+using wm::kVec;
+using wm::load8;
+using wm::proj1;
+using wm::sample8;
+using wm::store8;
 
 // ---------------------------------------------------------------------------
 // Per-view warp: src [B, h, w, C] -> out [B, D, H, W, C].
 // grid (ceil(H*W*G / kThreads), D, B), G = C / 8 threads per pixel.
 // ---------------------------------------------------------------------------
+template <bool kConv>
 __global__ void __launch_bounds__(kThreads)
 sweep_warp_kernel(const __nv_bfloat16* __restrict__ src,
                   const float* __restrict__ P, const float* __restrict__ Q,
                   const float* __restrict__ s, __nv_bfloat16* __restrict__ out,
                   int D, int H, int W, int h, int w, int C, int log2g,
-                  int s_per_pixel) {
+                  int s_per_pixel, Convention cv) {
   const int d = blockIdx.y;
   const int b = blockIdx.z;
   const int hw = H * W;
@@ -135,7 +68,8 @@ sweep_warp_kernel(const __nv_bfloat16* __restrict__ src,
   float acc[kVec];
 #pragma unroll
   for (int i = 0; i < kVec; ++i) acc[i] = 0.f;
-  sample8(src + (size_t)b * h * w * C, h, w, C, g * kVec, rx, ry, rz, acc);
+  sample8<kConv>(src + (size_t)b * h * w * C, h, w, C, g * kVec, rx, ry, rz,
+                 cv, acc);
   store8(out + (((size_t)b * D + d) * hw + pix) * C + g * kVec, acc);
 }
 
@@ -199,7 +133,8 @@ fused_cost_volume_kernel(const __nv_bfloat16* __restrict__ ref,
     float wv[kVec];
 #pragma unroll
     for (int i = 0; i < kVec; ++i) wv[i] = 0.f;
-    sample8(srcs + bv * src_stride, h, w, C, c0, rx, ry, rz, wv);
+    sample8<false>(srcs + bv * src_stride, h, w, C, c0, rx, ry, rz,
+                   Convention{}, wv);
     if (agg == 0) {
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
@@ -246,7 +181,8 @@ fused_cost_volume_kernel(const __nv_bfloat16* __restrict__ ref,
 //   that lie inside the image.
 // grid (ceil(H*W*G / kThreads), ceil(D / d_chunk), B): one thread owns one
 // (y, x, 8-channel group) over a run of d_chunk hypotheses. Coordinates,
-// the validity test and the f32 weights are sample8's. A pixel's sample
+// the validity test and the f32 weights are sample8's (wm::taps), in the
+// forward's convention. A pixel's sample
 // moves slowly along D, so the thread sums its four corners' contributions
 // in registers while the sample stays in one source cell (x0, y0) and
 // flushes them with vector f32 atomics (two 16-byte reductions per corner)
@@ -277,6 +213,7 @@ __device__ __forceinline__ void flush_cell(float* __restrict__ dfb, int h,
   }
 }
 
+template <bool kConv>
 __global__ void __launch_bounds__(kThreads)
 sweep_warp_backward_kernel(const __nv_bfloat16* __restrict__ g,
                            const float* __restrict__ P,
@@ -284,7 +221,8 @@ sweep_warp_backward_kernel(const __nv_bfloat16* __restrict__ g,
                            const float* __restrict__ s,
                            float* __restrict__ df,
                            int D, int H, int W, int h, int w, int C,
-                           int log2g, int s_per_pixel, int d_chunk) {
+                           int log2g, int s_per_pixel, int d_chunk,
+                           Convention cv) {
   const int b = blockIdx.z;
   const int hw = H * W;
   const int t = blockIdx.x * kThreads + threadIdx.x;
@@ -310,22 +248,12 @@ sweep_warp_backward_kernel(const __nv_bfloat16* __restrict__ g,
   for (int d = d0; d < d1; ++d) {
     const float sv = s_per_pixel ? s[((size_t)b * D + d) * hw + pix]
                                  : s[(size_t)b * D + d];
-    // the forward's arithmetic (proj1, sample8)
-    const float rx = proj1(px, sv, qx);
-    const float ry = proj1(py, sv, qy);
-    const float rz = proj1(pz, sv, qz);
-    if (!(rz > 0.f)) continue;                  // behind the camera
-    const float x = rx / rz;
-    const float y = ry / rz;
-    const float x0f = floorf(x);
-    const float y0f = floorf(y);
-    if (!(x0f >= -1.f && x0f <= (float)(w - 1) &&
-          y0f >= -1.f && y0f <= (float)(h - 1)))
-      continue;                                 // no corner inside (or NaN)
-    const float fx = x - x0f;
-    const float fy = y - y0f;
-    const int x0 = (int)x0f;
-    const int y0 = (int)y0f;
+    // the forward's arithmetic (proj1, wm::taps)
+    int x0, y0;
+    float fx, fy;
+    if (!wm::taps<kConv>(proj1(px, sv, qx), proj1(py, sv, qy),
+                         proj1(pz, sv, qz), cv, h, w, x0, y0, fx, fy))
+      continue;                                 // a dead sample
     if (have && (x0 != cx || y0 != cy)) flush_cell(dfb, h, w, C, cx, cy, acc);
     have = true;
     cx = x0;
@@ -342,32 +270,32 @@ sweep_warp_backward_kernel(const __nv_bfloat16* __restrict__ g,
   if (have) flush_cell(dfb, h, w, C, cx, cy, acc);
 }
 
-int log2_exact(int g) {
-  int l = 0;
-  while ((1 << l) < g) ++l;
-  return (1 << l) == g ? l : -1;
-}
-
 }  // namespace
 
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 = success);
 // cudaErrorInvalidValue for arguments the kernel does not take.
+// (sx, sy, x_lo, x_hi, y_lo, y_hi): the coordinate convention (sampler.cuh).
 int wm_sweep_warp(const void* src, const void* P, const void* Q,
                   const void* s, void* out, int B, int D, int H, int W,
-                  int h, int w, int C, int s_per_pixel, void* stream) {
-  const int log2g = (C % kVec) ? -1 : log2_exact(C / kVec);
+                  int h, int w, int C, int s_per_pixel, float sx, float sy,
+                  float x_lo, float x_hi, float y_lo, float y_hi,
+                  void* stream) {
+  const int log2g = (C % kVec) ? -1 : wm::log2_exact(C / kVec);
   if (log2g < 0 || B <= 0 || D <= 0 || H <= 0 || W <= 0 || h <= 0 ||
       w <= 0 || B > 65535 || D > 65535)
     return (int)cudaErrorInvalidValue;
   const long long n_thr = (long long)H * W << log2g;
   if (n_thr > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((n_thr + kThreads - 1) / kThreads), D, B);
-  sweep_warp_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  const Convention cv{sx, sy, x_lo, x_hi, y_lo, y_hi};
+  auto kernel = wm::is_identity(cv) ? sweep_warp_kernel<false>
+                                    : sweep_warp_kernel<true>;
+  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)src, (const float*)P, (const float*)Q,
       (const float*)s, (__nv_bfloat16*)out, D, H, W, h, w, C, log2g,
-      s_per_pixel);
+      s_per_pixel, cv);
   return (int)cudaGetLastError();
 }
 
@@ -375,8 +303,10 @@ int wm_sweep_warp(const void* src, const void* P, const void* Q,
 int wm_sweep_warp_backward(const void* g, const void* P, const void* Q,
                            const void* s, void* df, int B, int D, int H,
                            int W, int h, int w, int C, int s_per_pixel,
-                           int d_chunk, void* stream) {
-  const int log2g = (C % kVec) ? -1 : log2_exact(C / kVec);
+                           int d_chunk, float sx, float sy, float x_lo,
+                           float x_hi, float y_lo, float y_hi,
+                           void* stream) {
+  const int log2g = (C % kVec) ? -1 : wm::log2_exact(C / kVec);
   if (log2g < 0 || B <= 0 || D <= 0 || H <= 0 || W <= 0 || h <= 0 ||
       w <= 0 || d_chunk <= 0 || B > 65535)
     return (int)cudaErrorInvalidValue;
@@ -386,10 +316,13 @@ int wm_sweep_warp_backward(const void* g, const void* P, const void* Q,
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((n_thr + kThreads - 1) / kThreads),
                   (unsigned)n_chunks, B);
-  sweep_warp_backward_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  const Convention cv{sx, sy, x_lo, x_hi, y_lo, y_hi};
+  auto kernel = wm::is_identity(cv) ? sweep_warp_backward_kernel<false>
+                                    : sweep_warp_backward_kernel<true>;
+  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)g, (const float*)P, (const float*)Q,
       (const float*)s, (float*)df, D, H, W, h, w, C, log2g, s_per_pixel,
-      d_chunk);
+      d_chunk, cv);
   return (int)cudaGetLastError();
 }
 
@@ -398,7 +331,7 @@ int wm_fused_cost_volume(const void* ref, const void* srcs, const void* P,
                          void* out, int B, int NV, int D, int H, int W,
                          int h, int w, int C, int s_per_pixel, int agg,
                          void* stream) {
-  const int log2g = (C % kVec) ? -1 : log2_exact(C / kVec);
+  const int log2g = (C % kVec) ? -1 : wm::log2_exact(C / kVec);
   if (log2g < 0 || log2g > 5 || B <= 0 || NV <= 0 || D <= 0 || H <= 0 ||
       W <= 0 || h <= 0 || w <= 0 || B > 65535 || D > 65535 ||
       (agg != 0 && agg != 1))

@@ -1,9 +1,10 @@
 """Synthetic multi-view dataset: coherent renders with exact GT depth.
 
-The port's own numpy copy of wildmvs/data/synthetic.py:14-107, 157-166
-(the same seeds give the same arrays). Each sample is a tilted textured
-plane rendered into N pinhole views, so the plane sweep and the supervised
-loss behave as on real data, with no files.
+The port's own numpy copy of wildmvs/data/synthetic.py:14-166 (the same
+seeds give the same arrays). Each sample is a tilted textured plane
+rendered into N pinhole views, so the plane sweep and the supervised loss
+behave as on real data, with no files. `render_rig_plane` renders such a
+plane into any world-frame rig (the DTU-like eval rig of chip_smoke.py).
 """
 from __future__ import annotations
 
@@ -112,6 +113,48 @@ class SyntheticMVSDataset:
             "depth": ref_depth, "mask": mask,
             "filename": f"synthetic/{idx:08d}",
         }
+
+
+def render_rig_plane(Ks: np.ndarray, Rs: np.ndarray, ts: np.ndarray,
+                     h: int, w: int, plane: tuple, extent: float,
+                     seed: int = 0, tex_res: int = 1024):
+    """Render a tilted textured plane into an arbitrary world-frame rig.
+
+    Args:
+      Ks/Rs/ts: [N, 3, 3] / [N, 3, 3] / [N, 3, 1] cameras
+        (x_cam = R x_w + t).
+      plane: (z0, a, b), the surface z_w = z0 + a x_w + b y_w.
+      extent: half-width (world units) of the textured region.
+    Returns:
+      imgs [N, H, W, 3] float32, depths [N, H, W] float32 (per-view GT).
+    """
+    n = Ks.shape[0]
+    z0, a, b = plane
+    rng = np.random.default_rng(seed)
+    tex = rng.random((tex_res // 8, tex_res // 8, 3)).astype(np.float32)
+    tex = np.kron(tex, np.ones((8, 8, 1), np.float32))
+    for _ in range(2):
+        tex = 0.25 * (np.roll(tex, 1, 0) + np.roll(tex, -1, 0)
+                      + np.roll(tex, 1, 1) + np.roll(tex, -1, 1))
+    ys, xs = np.meshgrid(np.arange(h, dtype=np.float32),
+                         np.arange(w, dtype=np.float32), indexing="ij")
+    pix = np.stack([xs, ys, np.ones_like(xs)], -1)
+    imgs = np.zeros((n, h, w, 3), np.float32)
+    depths = np.zeros((n, h, w), np.float32)
+    for i in range(n):
+        rays_world = (pix @ np.linalg.inv(Ks[i]).T) @ Rs[i]   # R^T applied
+        center = (-Rs[i].T @ ts[i])[:, 0]
+        denom = (rays_world[..., 2] - a * rays_world[..., 0]
+                 - b * rays_world[..., 1])
+        num = z0 + a * center[0] + b * center[1] - center[2]
+        lam = num / np.where(np.abs(denom) < 1e-6, 1e-6, denom)
+        pts = center + rays_world * lam[..., None]
+        u = (pts[..., 0] + extent) * (tex_res / (2.0 * extent))
+        v = (pts[..., 1] + extent) * (tex_res / (2.0 * extent))
+        imgs[i] = _sample_texture(tex, u, v)
+        cam_pts = pts @ Rs[i].T + ts[i][:, 0]
+        depths[i] = cam_pts[..., 2].astype(np.float32)
+    return imgs, depths
 
 
 def collate(samples: list) -> dict:

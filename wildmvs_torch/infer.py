@@ -32,9 +32,11 @@ class Predictor:
       model_path: an npz (JAX `save_params_npz`) or torch checkpoint file;
         None for seeded random weights (seed 0; smoke and performance
         runs).
-      architecture: mvsnet | mvsnet-s; read from the checkpoint if None.
+      architecture: mvsnet | mvsnet-s | vis_mvsnet; read from the
+        checkpoint if None.
       bf16: run the networks in bf16 (default) or f32.
-      sweep_method: cost-volume backend (models/mvsnet.py).
+      sweep_method: cost-volume backend (models/mvsnet.py,
+        models/vis_mvsnet.py).
       device: "cuda" (default; raises without a card) or "cpu".
     """
 
@@ -78,7 +80,8 @@ class Predictor:
         of per-view [Hi, Wi, 3] / [B, Hi, Wi, 3] arrays of different sizes
         (each cropped on its own); K/R [., N, 3, 3], t [., N, 3, 1],
         depth_min/max [., N] or scalars. Returns numpy f32 {depth,
-        confidence}, without the batch axis when the input had none."""
+        confidence} (vis_mvsnet: one confidence per stage, [3, h, w]),
+        without the batch axis when the input had none."""
         ragged = (isinstance(imgs, (list, tuple))
                   and len({tuple(np.asarray(v).shape[-3:-1])
                            for v in imgs}) > 1)

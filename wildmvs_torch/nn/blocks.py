@@ -1,12 +1,16 @@
-"""Conv + BatchNorm + ReLU blocks (2D and 3D) and the transposed 3D block.
+"""Conv + BatchNorm + ReLU blocks (2D and 3D), the transposed 3D block, and
+the ResNet BasicBlock / ResLayer / UNet of Vis-MVSNet.
 
-Counterpart of wildmvs/nn/blocks.py:231-564 (reference
-models/MVSNet/module.py:21-48, model.py:57-70), unpacked math only: the JAX
-package's depth-packed, space-to-depth and conv3d-via-2D forms are TPU
-layouts of the same math and have no counterpart here. BatchNorm uses eps
-1e-5 and momentum 0.1, torch's defaults. Attribute names reproduce the
-reference state_dict keys (`<block>.conv.weight`, `<block>.bn.*`; the
-transposed block is a Sequential, so `<block>.0.weight`, `<block>.1.*`).
+Counterpart of wildmvs/nn/blocks.py:231-696 (reference
+models/MVSNet/module.py:21-48, model.py:57-70, VisMVSNet/nn_utils.py:
+123-278), unpacked math only: the JAX package's depth-packed,
+space-to-depth and conv3d-via-2D forms are TPU layouts of the same math and
+have no counterpart here. BatchNorm uses eps 1e-5 and momentum 0.1, torch's
+defaults. Attribute names reproduce the reference state_dict keys
+(`<block>.conv.weight`, `<block>.bn.*`; the transposed block is a
+Sequential, so `<block>.0.weight`, `<block>.1.*`; BasicBlock
+`conv1/bn1/conv2/bn2/downsample.0/.1`; UNet `enc_blocks` / `dec_blocks`
+keyed `{prefix}{scale}_{idx}`).
 
 Tensors are torch's NC(D)HW; the model keeps them in channels-last memory.
 """
@@ -15,7 +19,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-CONVS = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)
+CONVS = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d)
+_CONV = {2: nn.Conv2d, 3: nn.Conv3d}
+_DECONV = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
+_BN = {2: nn.BatchNorm2d, 3: nn.BatchNorm3d}
 
 
 class ConvBnReLU(nn.Module):
@@ -25,11 +32,9 @@ class ConvBnReLU(nn.Module):
                  kernel_size: int = 3, stride: int = 1, pad: int = 1,
                  dim: int = 2):
         super().__init__()
-        conv = {2: nn.Conv2d, 3: nn.Conv3d}[dim]
-        bn = {2: nn.BatchNorm2d, 3: nn.BatchNorm3d}[dim]
-        self.conv = conv(in_channels, out_channels, kernel_size, stride, pad,
-                         bias=False)
-        self.bn = bn(out_channels, eps=1e-5, momentum=0.1)
+        self.conv = _CONV[dim](in_channels, out_channels, kernel_size,
+                               stride, pad, bias=False)
+        self.bn = _BN[dim](out_channels, eps=1e-5, momentum=0.1)
 
     def forward(self, x):
         return torch.relu(self.bn(self.conv(x)))
@@ -48,6 +53,98 @@ class ConvTransposeBnReLU(nn.Sequential):
                                output_padding=output_padding, bias=False),
             nn.BatchNorm3d(out_channels, eps=1e-5, momentum=0.1),
             nn.ReLU(inplace=True))
+
+
+class BasicBlock(nn.Module):
+    """ResNet BasicBlock: conv3x3-BN-ReLU, conv3x3-BN, plus the input or
+    its 1x1 projection (when the stride or the width changes), then ReLU
+    (reference nn_utils.py:123-171). 2D or 3D."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 dim: int = 2):
+        super().__init__()
+        self.conv1 = _CONV[dim](in_channels, out_channels, 3, stride, 1,
+                                bias=False)
+        self.bn1 = _BN[dim](out_channels, eps=1e-5, momentum=0.1)
+        self.conv2 = _CONV[dim](out_channels, out_channels, 3, 1, 1,
+                                bias=False)
+        self.bn2 = _BN[dim](out_channels, eps=1e-5, momentum=0.1)
+        self.downsample = None
+        if stride != 1 or in_channels != out_channels:
+            self.downsample = nn.Sequential(
+                _CONV[dim](in_channels, out_channels, 1, stride, 0,
+                           bias=False),
+                _BN[dim](out_channels, eps=1e-5, momentum=0.1))
+
+    def forward(self, x):
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return torch.relu(out + residual)
+
+
+class ResLayer(nn.Sequential):
+    """`blocks` BasicBlocks, the first one strided (reference
+    nn_utils.py:175-191 `_make_layer`, a Sequential: keys `.0`, `.1`)."""
+
+    def __init__(self, in_channels: int, out_channels: int, blocks: int,
+                 stride: int = 1, dim: int = 2):
+        super().__init__(*[
+            BasicBlock(in_channels if i == 0 else out_channels, out_channels,
+                       stride if i == 0 else 1, dim) for i in range(blocks)])
+
+
+class UNet(nn.Module):
+    """The Vis-MVSNet UNet, 2D or 3D (reference nn_utils.py:194-278).
+
+    Encoder: a ResLayer per filter width, stride 1 for the first and 2
+    after. Decoder, for each width but the last in reverse: a stride-2
+    transposed conv, concatenation with the encoder output of that scale,
+    a 3x3 conv, and `dec_blocks_per_stage` BasicBlocks. Blocks are keyed
+    `{prefix}{scale}_{idx}` (scale = initial_scale * 2^level) as the
+    reference registers them.
+
+    forward(x, multi_scale=k) returns the last k decoder outputs (coarsest
+    first; the first of them may be the bottom encoder output), or the
+    finest alone for k = 1.
+    """
+
+    def __init__(self, in_channels: int, enc_blocks_per_stage: int,
+                 dec_blocks_per_stage: int, filters, prefix: str,
+                 initial_scale: int, dim: int = 2):
+        super().__init__()
+        self.enc_blocks = nn.ModuleDict()
+        self.dec_blocks = nn.ModuleDict()
+        scale, prev = initial_scale, in_channels
+        for idx, f in enumerate(filters):
+            self.enc_blocks[f"{prefix}{scale}_{idx}"] = ResLayer(
+                prev, f, enc_blocks_per_stage, 1 if idx == 0 else 2, dim)
+            scale, prev = scale * 2, f
+        idx = len(filters)
+        for f in list(filters)[-2::-1]:
+            parts = [_DECONV[dim](prev, f, 3, stride=2, padding=1,
+                                  output_padding=1, bias=False),
+                     _CONV[dim](2 * f, f, 3, 1, 1, bias=False)]
+            if dec_blocks_per_stage > 0:
+                parts.append(ResLayer(f, f, dec_blocks_per_stage, 1, dim))
+            self.dec_blocks[f"{prefix}{scale}_{idx}"] = nn.Sequential(*parts)
+            scale, prev, idx = scale // 2, f, idx + 1
+
+    def forward(self, x, multi_scale: int = 1):
+        enc_out = []
+        for layer in self.enc_blocks.values():
+            x = layer(x)
+            enc_out.append(x)
+        dec_out = [x]
+        for i, block in enumerate(self.dec_blocks.values()):
+            x = block[0](x)
+            x = block[1](torch.cat([x, enc_out[-2 - i]], dim=1))
+            if len(block) > 2:
+                x = block[2](x)
+            dec_out.append(x)
+        if multi_scale == 1:
+            return x
+        return dec_out[-multi_scale:]
 
 
 def cast_convs(module: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -69,8 +166,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     for m in module.modules():
         if isinstance(m, CONVS):
             w = m.weight
-            fan_in = w[0].numel() if not isinstance(m, nn.ConvTranspose3d) \
-                else w.shape[0] * w[0, 0].numel()
+            deconv = isinstance(m, (nn.ConvTranspose2d, nn.ConvTranspose3d))
+            fan_in = w.shape[0] * w[0, 0].numel() if deconv else w[0].numel()
             w.copy_(torch.randn(w.shape, generator=generator)
                     * (2.0 / fan_in) ** 0.5)
             if m.bias is not None:

@@ -1,11 +1,12 @@
 """The port's plane-sweep kernels: wrappers, plain versions, launch counts.
 
-Three hand-written CUDA kernels for Hopper (csrc/sweep.cu, built on first
-use by _build.py) replace three Pallas TPU kernels of
+Four hand-written CUDA kernels for Hopper (csrc/sweep.cu, csrc/gwc.cu,
+built on first use by _build.py) replace the five Pallas TPU kernels of
 wildmvs/ops/mosaic_sweep.py:
 
-  sweep_warp          <- _kernel / mosaic_sweep_warp (:143-270). One source
-      view warped over D hypotheses -> [B, D, H, W, C] bf16.
+  sweep_warp          <- _kernel / mosaic_sweep_warp (:143-270) and
+      _kernel_px / mosaic_sweep_warp_px (:298-624). One source view warped
+      over D hypotheses -> [B, D, H, W, C] bf16, in either convention.
       Bound: HBM bytes. At the 512x640 headline (128x160 features, C=32,
       D=192) it writes 251.7 MB and reads about 1.8 MB (source map plus
       the P/Q planes): about 76 us at 3.35 TB/s. Design: one thread per
@@ -23,6 +24,18 @@ wildmvs/ops/mosaic_sweep.py:
       flushes them with 16-byte vector atomics when the cell changes. No
       one-hot MXU contraction, KY/NTS window, VMEM canvas, channel split
       or XLA fallback: an atomic scatter has no window.
+  sweep_gwc           <- _kernel_px_gwc / mosaic_sweep_warp_px_gwc
+      (:627-791). The Vis-MVSNet per-pair cost volume: the warp fused with
+      the group-wise correlation against the reference features ->
+      [B, D, H, W, 8] bf16; the warped volume never reaches HBM.
+      Bound: HBM bytes. At the 1184x1600 eval's stage 3 (592x800, C=32,
+      D=16, per-pixel hypotheses) it writes 121.2 MB and reads about
+      102 MB (reference, source, hypotheses, planes): about 67 us at
+      3.35 TB/s. Design: one thread per reference pixel and run of
+      GWC_D_CHUNK hypotheses, the pixel's reference channels held in
+      registers, the warped channels formed in f32 registers and summed
+      into their groups, one 16-byte store per sample. No backward: it
+      serves eval only (training warps with sweep_warp).
   fused_cost_volume   <- _kernel_fused / fused_cost_volume_px (:811-1117).
       All NV source views in one launch; variance (sum, sum of squares) or
       softmin (sum e*diff, sum e) statistics in f32 registers; only the
@@ -36,15 +49,29 @@ wildmvs/ops/mosaic_sweep.py:
 None carries over the TPU's corner table, span plans, KY/KR/NT window
 tiers, lax.cond gather fallbacks, row/lane padding or depth pairing: a
 Hopper gather has no window, so the kernels are exact for any rig.
-`fused_cost_volume` has no backward and refuses inputs that require grad.
+`fused_cost_volume` and `sweep_gwc` have no backward and refuse inputs
+that require grad.
 
-One projection form serves both kernels (`mvsnet_planes`): for reference
-pixel (y, x) and hypothesis s (a depth, per plane [D] or per pixel
-[D, H, W]),  (rx, ry, rz) = P[:, y, x] * s + Q[:, y, x],  coords =
-(rx, ry) / rz in source pixels; rz <= 0 (behind the camera) samples zero.
+One projection form serves every kernel: for reference pixel (y, x) and
+hypothesis s (per plane [D] or per pixel [D, H, W]),
+  (rx, ry, rz) = P[:, y, x] * s + Q[:, y, x],
+  x = clamp((rz > 0 ? rx / rz : -10) * sx, x_lo, x_hi)   (y alike)
+in source pixels (mosaic_sweep.py:328-338), in one of two conventions:
+  MVSNet (`mvsnet_planes`): integer reference grid, s = depth, scale
+    (1, 1), no clamp: coords = (rx, ry) / rz, and a point behind the
+    camera samples zero.
+  Vis-MVSNet (`vis_planes`): pixel-centre grid, P = -B p, Q = A p (the
+    homography H(d) = A - B/d), s = 1 / (d + 1e-9), scale ((w-1)/w,
+    (h-1)/h) and the reference's normalized [-1.1, 1.1] clamp, which is
+    [-0.05 (w-1), 1.05 (w-1)] in source pixels. On a source narrower than
+    21 px the clamp lies inside (-1, 0), so a clamped or behind-camera
+    sample reads pixel 0 as the exact gather does (the JAX package keeps
+    such sources off its kernels, mosaic_sweep.py:1493-1500; the port's
+    kernels are exact for them).
 Coordinates, bilinear weights and the combine are f32; features are read
 as bf16; each output is rounded once to bf16. (The Pallas kernels combine
-with bf16 weights in bf16; the port's f32 combine differs from them by
+with bf16 weights in bf16, and the gwc kernel rounds the warped value to
+bf16 before its products; the port's f32 combine differs from them by
 bf16 rounding, by design.)
 
 The backward's adds are f32 atomics in an order that changes from run to
@@ -62,6 +89,8 @@ import torch.nn.functional as F
 from ..geometry.projective import pixel_grid
 
 AGGREGATIONS = ("variance", "softmin")
+#: groups of the group-wise correlation (Vis-MVSNet, model_cas.py:176-187)
+GWC_GROUPS = 8
 
 
 # ---------------------------------------------------------------------------
@@ -92,6 +121,56 @@ def mvsnet_planes(src_proj: torch.Tensor, ref_proj: torch.Tensor,
     return P, Q
 
 
+#: the MVSNet convention's coordinate scale (and no clamp)
+UNIT_SCALE = (1.0, 1.0)
+
+
+def vis_planes(K_ref, R_ref, t_ref, K_src, R_src, t_src,
+               ref_hw: tuple[int, int], src_hw: tuple[int, int]):
+    """(P, Q, scale, clamp) of the Vis-MVSNet homography sweep; sample with
+    s = 1 / (depth + 1e-9) (`inverse_depths`).
+
+    Counterpart of vis_planes (mosaic_sweep.py:402-427), batched: over the
+    pixel-centre (+0.5) reference grid p, P = -B p and Q = A p with the
+    plane-induced homography H(d) = A - B/d of homography_sweep_grid_xy
+    (wildmvs/ops/plane_sweep.py:209-260); the reference normalizes the
+    coordinates by the source size and unnormalizes them align_corners,
+    a net scale ((w-1)/w, (h-1)/h), after clamping the normalized value to
+    [-1.1, 1.1], which is [-0.05 (size-1), 1.05 (size-1)] in pixels.
+
+    Args:
+      K_ref, R_ref, K_src, R_src: [B, 3, 3]; t_ref, t_src: [B, 3, 1].
+      ref_hw, src_hw: (H, W) of the reference grid and of the source map.
+    Returns:
+      P, Q: contiguous [B, 3, H, W] f32 planes; scale (sx, sy);
+      clamp (x_lo, x_hi, y_lo, y_hi) in source pixels.
+    """
+    rh, rw = ref_hw
+    sh, sw = src_hw
+    K_ref, R_ref, t_ref, K_src, R_src, t_src = (
+        a.float() for a in (K_ref, R_ref, t_ref, K_src, R_src, t_src))
+    K_ref_inv = torch.linalg.inv(K_ref)
+    R_ref_T = R_ref.transpose(-1, -2)
+    fronto = R_ref[:, 2:3, :]
+    c_rel = (-R_src.transpose(-1, -2) @ t_src) - (-R_ref_T @ t_ref)
+    M = K_src @ R_src
+    A = M @ R_ref_T @ K_ref_inv
+    Bm = M @ (c_rel @ fronto) @ R_ref_T @ K_ref_inv
+    grid = pixel_grid(rh, rw, torch.float32, K_ref.device, offset=0.5)
+    hom = torch.cat([grid, torch.ones_like(grid[..., :1])], -1)
+    Q = torch.einsum("bij,hwj->bihw", A, hom).contiguous()
+    P = (-torch.einsum("bij,hwj->bihw", Bm, hom)).contiguous()
+    scale = ((sw - 1.0) / sw, (sh - 1.0) / sh)
+    clamp = (-0.05 * (sw - 1), 1.05 * (sw - 1),
+             -0.05 * (sh - 1), 1.05 * (sh - 1))
+    return P, Q, scale, clamp
+
+
+def inverse_depths(depth: torch.Tensor) -> torch.Tensor:
+    """The Vis convention's hypotheses s = 1 / (depth + 1e-9), f32."""
+    return 1.0 / (depth.float() + 1e-9)
+
+
 # ---------------------------------------------------------------------------
 # plain versions (the kernels' arithmetic in PyTorch)
 # ---------------------------------------------------------------------------
@@ -103,23 +182,38 @@ def _project(P: torch.Tensor, Q: torch.Tensor, s: torch.Tensor):
     return r[:, 0], r[:, 1], r[:, 2]
 
 
-def _taps(rx, ry, rz, h: int, w: int):
-    """The four bilinear taps of each sample at (rx, ry) / rz on a source
+def source_coords(rx, ry, rz, scale=UNIT_SCALE, clamp=None):
+    """(x, y) source-pixel coordinates of projective points in a
+    convention: (rz > 0 ? r / rz : -10) * scale, then the clamp (None:
+    none)."""
+    pos = rz > 0
+    safe_z = torch.where(pos, rz, torch.ones_like(rz))
+    x = torch.where(pos, rx / safe_z, -10.0)
+    y = torch.where(pos, ry / safe_z, -10.0)
+    if tuple(scale) != UNIT_SCALE:
+        x = x * scale[0]
+        y = y * scale[1]
+    if clamp is not None:
+        x = x.clamp(clamp[0], clamp[1])
+        y = y.clamp(clamp[2], clamp[3])
+    return x, y
+
+
+def _taps(rx, ry, rz, h: int, w: int, scale=UNIT_SCALE, clamp=None):
+    """The four bilinear taps of each sample at `source_coords` on a source
     of h x w pixels seen through a one-pixel zero ring [h+2, w+2].
 
-    A sample is live when rz > 0, floor(x) in [-1, w-1] and floor(y) in
-    [-1, h-1]; its corners outside the image fall on the ring. A dead
-    sample has weight 0 at ring index 0.
+    A sample is live when floor(x) in [-1, w-1] and floor(y) in [-1, h-1]
+    (behind the camera, x = -10 * sx: dead unless a clamp moves it); its
+    corners outside the image fall on the ring. A dead sample has weight 0
+    at ring index 0.
     Returns (idx [B, M] ring index of the top-left corner, offsets of the
     four corners, weights: four f32 [B, ..., 1])."""
     b = rx.shape[0]
-    pos = rz > 0
-    safe_z = torch.where(pos, rz, torch.ones_like(rz))
-    x = rx / safe_z
-    y = ry / safe_z
+    x, y = source_coords(rx, ry, rz, scale, clamp)
     x0f = torch.floor(x)
     y0f = torch.floor(y)
-    live = (pos & (x0f >= -1) & (x0f <= w - 1)
+    live = ((x0f >= -1) & (x0f <= w - 1)
             & (y0f >= -1) & (y0f <= h - 1))
     fx = x - x0f
     fy = y - y0f
@@ -133,12 +227,13 @@ def _taps(rx, ry, rz, h: int, w: int):
     return idx, (0, 1, w + 2, w + 3), wts
 
 
-def _sample_f32(img: torch.Tensor, rx, ry, rz,
-                dtype=torch.float32) -> torch.Tensor:
-    """Bilinear border-zero sample of img [B, h, w, C] at (rx, ry) / rz
-    (`_taps`). Returns the unrounded values in `dtype`, [B, ..., C]."""
+def _sample_f32(img: torch.Tensor, rx, ry, rz, dtype=torch.float32,
+                scale=UNIT_SCALE, clamp=None) -> torch.Tensor:
+    """Bilinear border-zero sample of img [B, h, w, C] at the projective
+    points (rx, ry, rz) in a convention (`_taps`). Returns the unrounded
+    values in `dtype`, [B, ..., C]."""
     b, h, w, c = img.shape
-    idx, offs, wts = _taps(rx, ry, rz, h, w)
+    idx, offs, wts = _taps(rx, ry, rz, h, w, scale, clamp)
     flat = F.pad(img, (0, 0, 1, 1, 1, 1)).reshape(b, -1, c)
     rows = torch.arange(b, device=img.device)[:, None]
     acc = None
@@ -150,13 +245,14 @@ def _sample_f32(img: torch.Tensor, rx, ry, rz,
 
 
 def _scatter_f32(g: torch.Tensor, rx, ry, rz, src_hw: tuple[int, int],
-                 dtype=torch.float32) -> torch.Tensor:
+                 dtype=torch.float32, scale=UNIT_SCALE,
+                 clamp=None) -> torch.Tensor:
     """The exact transpose of `_sample_f32`: g [B, ..., C] -> df [B, h, w,
     C] in `dtype`, each sample's four weighted corners added with
     index_add_ into the zero ring, which is then cut away."""
     h, w = src_hw
     b, c = g.shape[0], g.shape[-1]
-    idx, offs, wts = _taps(rx, ry, rz, h, w)
+    idx, offs, wts = _taps(rx, ry, rz, h, w, scale, clamp)
     ring = torch.zeros((b * (h + 2) * (w + 2), c), dtype=dtype,
                        device=g.device)
     base = (torch.arange(b, device=g.device) * ((h + 2) * (w + 2)))[:, None]
@@ -167,15 +263,30 @@ def _scatter_f32(g: torch.Tensor, rx, ry, rz, src_hw: tuple[int, int],
     return ring.reshape(b, h + 2, w + 2, c)[:, 1:h + 1, 1:w + 1]
 
 
-def sweep_warp_plain(src, P, Q, s) -> torch.Tensor:
+def sweep_warp_plain(src, P, Q, s, scale=UNIT_SCALE,
+                     clamp=None) -> torch.Tensor:
     """Plain PyTorch version of the `sweep_warp` kernel (same arguments)."""
-    return _sample_f32(src, *_project(P, Q, s)).to(torch.bfloat16)
+    return _sample_f32(src, *_project(P, Q, s), scale=scale,
+                       clamp=clamp).to(torch.bfloat16)
 
 
-def sweep_warp_backward_plain(g, P, Q, s, src_hw) -> torch.Tensor:
+def sweep_warp_backward_plain(g, P, Q, s, src_hw, scale=UNIT_SCALE,
+                              clamp=None) -> torch.Tensor:
     """Plain PyTorch version of the `sweep_warp_backward` kernel: the f32
     accumulation [B, h, w, C], before any cast."""
-    return _scatter_f32(g, *_project(P, Q, s), src_hw).contiguous()
+    return _scatter_f32(g, *_project(P, Q, s), src_hw, scale=scale,
+                        clamp=clamp).contiguous()
+
+
+def sweep_gwc_plain(src, ref, P, Q, s, scale=UNIT_SCALE, clamp=None,
+                    groups: int = GWC_GROUPS) -> torch.Tensor:
+    """Plain PyTorch version of the `sweep_gwc` kernel: the f32 warp
+    (unrounded), times the reference features, summed over each group's
+    C/groups channels in f32, rounded once to bf16 -> [B, D, H, W, groups]."""
+    warped = _sample_f32(src, *_project(P, Q, s), scale=scale, clamp=clamp)
+    prod = ref.float()[:, None] * warped
+    corr = prod.reshape(prod.shape[:-1] + (groups, -1)).sum(-1)
+    return corr.to(torch.bfloat16)
 
 
 def fused_cost_volume_plain(ref, srcs, P, Q, s, temp=None,
@@ -242,6 +353,18 @@ def _check_features(name, t, c=None):
     return c
 
 
+def _convention(scale, clamp):
+    """Checked (scale, clamp) -> the kernels' six floats (sx, sy, x_lo,
+    x_hi, y_lo, y_hi); no clamp is infinite bounds."""
+    _require(len(scale) == 2, f"scale must be (sx, sy), got {scale}")
+    inf = float("inf")
+    clamp = (-inf, inf, -inf, inf) if clamp is None else clamp
+    _require(len(clamp) == 4 and clamp[0] <= clamp[1]
+             and clamp[2] <= clamp[3],
+             f"clamp must be (x_lo, x_hi, y_lo, y_hi), got {clamp}")
+    return tuple(float(v) for v in (*scale, *clamp))
+
+
 def _launch_args(tensors):
     dev = tensors[0].device
     for t in tensors:
@@ -251,14 +374,15 @@ def _launch_args(tensors):
     return dev
 
 
-def _sweep_warp_forward(src, P, Q, s) -> torch.Tensor:
+def _sweep_warp_forward(src, P, Q, s, scale, clamp) -> torch.Tensor:
     """The checked arguments of `sweep_warp` -> the warped volume."""
     b, h, w, c = src.shape
     H, W = P.shape[-2:]
     D = s.shape[1]
+    conv = _convention(scale, clamp)
     dev = _launch_args([src, P, Q, s])
     if dev.type == "cpu":
-        return sweep_warp_plain(src, P, Q, s)
+        return sweep_warp_plain(src, P, Q, s, scale, clamp)
     _require(dev.type == "cuda", f"unsupported device {dev}")
     from .. import _build
     lib = _build.load()
@@ -267,7 +391,7 @@ def _sweep_warp_forward(src, P, Q, s) -> torch.Tensor:
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.wm_sweep_warp(src.data_ptr(), P.data_ptr(), Q.data_ptr(),
                                s.data_ptr(), out.data_ptr(), b, D, H, W, h,
-                               w, c, int(s.dim() == 4), stream)
+                               w, c, int(s.dim() == 4), *conv, stream)
     _build.check(rc, "wm_sweep_warp")
     sweep_warp.launches += 1
     return out
@@ -276,27 +400,32 @@ def _sweep_warp_forward(src, P, Q, s) -> torch.Tensor:
 class SweepWarpFn(torch.autograd.Function):
     """`sweep_warp` with its transpose, `sweep_warp_backward`, as the
     features' gradient (the counterpart of the custom VJP
-    plane_sweep_warp_mosaic, mosaic_sweep.py:1393-1478). The grid carries
-    no gradient (reference module.py:127): P, Q and s get None."""
+    plane_sweep_warp_mosaic and homography_sweep_warp_mosaic,
+    mosaic_sweep.py:1393-1478, 1646-1736). The grid carries no gradient
+    (reference module.py:127, homography.py:25/92/110): P, Q and s get
+    None."""
 
     @staticmethod
-    def forward(ctx, src, P, Q, s):
+    def forward(ctx, src, P, Q, s, scale, clamp):
         ctx.save_for_backward(P, Q, s)
         ctx.src_hw = tuple(src.shape[1:3])
-        return _sweep_warp_forward(src, P, Q, s)
+        ctx.convention = (scale, clamp)
+        return _sweep_warp_forward(src, P, Q, s, scale, clamp)
 
     @staticmethod
     def backward(ctx, g):
         P, Q, s = ctx.saved_tensors
         df = None
         if ctx.needs_input_grad[0]:
+            scale, clamp = ctx.convention
             df = sweep_warp_backward(g.to(torch.bfloat16).contiguous(), P, Q,
-                                     s, ctx.src_hw)
-        return df, None, None, None
+                                     s, ctx.src_hw, scale=scale, clamp=clamp)
+        return df, None, None, None, None, None
 
 
 def sweep_warp(src: torch.Tensor, P: torch.Tensor, Q: torch.Tensor,
-               s: torch.Tensor) -> torch.Tensor:
+               s: torch.Tensor, scale=UNIT_SCALE,
+               clamp=None) -> torch.Tensor:
     """Warp one source view over a sweep (kernel `wm_sweep_warp`).
 
     Differentiable in `src`: its gradient is `sweep_warp_backward` of the
@@ -304,15 +433,19 @@ def sweep_warp(src: torch.Tensor, P: torch.Tensor, Q: torch.Tensor,
 
     Args:
       src: [B, h, w, C] bf16 source features (any h, w).
-      P, Q: [B, 3, H, W] f32 projection planes (`mvsnet_planes`).
+      P, Q: [B, 3, H, W] f32 projection planes (`mvsnet_planes` or
+        `vis_planes`).
       s: [B, D] or [B, D, H, W] f32 hypotheses.
+      scale, clamp: the coordinate convention (`vis_planes`; the default
+        is MVSNet's: unit scale, no clamp).
     Returns:
       [B, D, H, W, C] bf16 warped volume.
     """
     _require(src.dim() == 4, f"src must be [B, h, w, C], got {src.shape}")
     _check_features("src", src)
     _check_planes(P, Q, s, src.shape[0])
-    return SweepWarpFn.apply(src, P, Q, s)
+    return SweepWarpFn.apply(src, P, Q, s, tuple(scale),
+                             None if clamp is None else tuple(clamp))
 
 
 sweep_warp.launches = 0
@@ -324,13 +457,15 @@ BACKWARD_D_CHUNK = 16
 
 def sweep_warp_backward(g: torch.Tensor, P: torch.Tensor, Q: torch.Tensor,
                         s: torch.Tensor, src_hw: tuple[int, int],
-                        dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                        dtype: torch.dtype = torch.bfloat16,
+                        scale=UNIT_SCALE, clamp=None) -> torch.Tensor:
     """The warp's transpose (kernel `wm_sweep_warp_backward`): the
     gradient of `sweep_warp` with respect to its source features.
 
     Args:
       g: [B, D, H, W, C] bf16 gradient of the warped volume.
-      P, Q, s: the forward's planes and hypotheses.
+      P, Q, s, scale, clamp: the forward's planes, hypotheses and
+        convention.
       src_hw: (h, w) of the source features.
       dtype: dtype of the result; torch.float32 returns the f32
         accumulation uncast (the JAX VJP casts it to the feature dtype,
@@ -344,9 +479,11 @@ def sweep_warp_backward(g: torch.Tensor, P: torch.Tensor, Q: torch.Tensor,
     _require((H, W, D) == _check_planes(P, Q, s, b),
              f"g {tuple(g.shape)} does not match the planes and hypotheses")
     h, w = src_hw
+    conv = _convention(scale, clamp)
     dev = _launch_args([g, P, Q, s])
     if dev.type == "cpu":
-        return sweep_warp_backward_plain(g, P, Q, s, src_hw).to(dtype)
+        return sweep_warp_backward_plain(g, P, Q, s, src_hw, scale,
+                                         clamp).to(dtype)
     _require(dev.type == "cuda", f"unsupported device {dev}")
     from .. import _build
     lib = _build.load()
@@ -356,13 +493,75 @@ def sweep_warp_backward(g: torch.Tensor, P: torch.Tensor, Q: torch.Tensor,
         rc = lib.wm_sweep_warp_backward(
             g.data_ptr(), P.data_ptr(), Q.data_ptr(), s.data_ptr(),
             df.data_ptr(), b, D, H, W, h, w, c, int(s.dim() == 4),
-            BACKWARD_D_CHUNK, stream)
+            BACKWARD_D_CHUNK, *conv, stream)
     _build.check(rc, "wm_sweep_warp_backward")
     sweep_warp_backward.launches += 1
     return df.to(dtype)
 
 
 sweep_warp_backward.launches = 0
+
+#: hypotheses per thread of the gwc kernel (the run over which a thread
+#: keeps its reference pixel in registers)
+GWC_D_CHUNK = 4
+
+
+def _refuse_grad(name: str, tensors) -> None:
+    _require(not (torch.is_grad_enabled() and any(
+        torch.is_tensor(t) and t.requires_grad for t in tensors)),
+        f"{name} has no backward: call it without grad, or train through "
+        f"sweep_warp (sweep_method 'warp')")
+
+
+def sweep_gwc(src: torch.Tensor, ref: torch.Tensor, P: torch.Tensor,
+              Q: torch.Tensor, s: torch.Tensor, scale=UNIT_SCALE,
+              clamp=None, groups: int = GWC_GROUPS) -> torch.Tensor:
+    """The warp fused with the group-wise correlation (kernel
+    `wm_sweep_gwc`): out[..., g] = sum over the channels c of group g of
+    ref[..., c] * warped[..., c]. Eval only (no backward).
+
+    Args:
+      src: [B, h, w, C] bf16 source features (any h, w; C in 8, 16, 32,
+        64).
+      ref: [B, H, W, C] bf16 reference features.
+      P, Q: [B, 3, H, W] f32 planes; s: [B, D] or [B, D, H, W] f32
+        hypotheses; scale, clamp: the convention (`vis_planes`).
+      groups: must be 8 (GWC_GROUPS).
+    Returns:
+      [B, D, H, W, groups] bf16 correlation volume.
+    """
+    _require(groups == GWC_GROUPS, f"groups must be {GWC_GROUPS}")
+    _require(src.dim() == 4 and ref.dim() == 4,
+             "src must be [B, h, w, C] and ref [B, H, W, C]")
+    b, h, w, c = src.shape
+    _check_features("src", src)
+    _check_features("ref", ref, c)
+    _require(c in (8, 16, 32, 64), f"channels must be 8, 16, 32 or 64, "
+             f"got {c}")
+    H, W, D = _check_planes(P, Q, s, b)
+    _require(tuple(ref.shape[:3]) == (b, H, W),
+             f"ref {tuple(ref.shape)} does not match the planes")
+    _refuse_grad("sweep_gwc", (src, ref, P, Q, s))
+    conv = _convention(scale, clamp)
+    dev = _launch_args([src, ref, P, Q, s])
+    if dev.type == "cpu":
+        return sweep_gwc_plain(src, ref, P, Q, s, scale, clamp, groups)
+    _require(dev.type == "cuda", f"unsupported device {dev}")
+    from .. import _build
+    lib = _build.load()
+    out = torch.empty((b, D, H, W, groups), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.wm_sweep_gwc(src.data_ptr(), ref.data_ptr(), P.data_ptr(),
+                              Q.data_ptr(), s.data_ptr(), out.data_ptr(), b,
+                              D, H, W, h, w, c, int(s.dim() == 4),
+                              GWC_D_CHUNK, *conv, stream)
+    _build.check(rc, "wm_sweep_gwc")
+    sweep_gwc.launches += 1
+    return out
+
+
+sweep_gwc.launches = 0
 
 
 def fused_cost_volume(ref: torch.Tensor, srcs: torch.Tensor, P: torch.Tensor,
@@ -399,10 +598,7 @@ def fused_cost_volume(ref: torch.Tensor, srcs: torch.Tensor, P: torch.Tensor,
         temp = temp.reshape(1)
     else:
         temp = torch.zeros(1, dtype=torch.float32, device=ref.device)
-    _require(not (torch.is_grad_enabled() and any(
-        t.requires_grad for t in (ref, srcs, P, Q, s, temp))),
-        "fused_cost_volume has no backward: call it without grad, or "
-        "train through sweep_warp (MVSNet sweep_method 'warp')")
+    _refuse_grad("fused_cost_volume", (ref, srcs, P, Q, s, temp))
     dev = _launch_args([ref, srcs, P, Q, s, temp])
     if dev.type == "cpu":
         return fused_cost_volume_plain(ref, srcs, P, Q, s, temp, agg)
@@ -426,7 +622,8 @@ fused_cost_volume.launches = 0
 #: every kernel wrapper of the port, by kernel name
 KERNELS = {"sweep_warp": sweep_warp,
            "sweep_warp_backward": sweep_warp_backward,
-           "fused_cost_volume": fused_cost_volume}
+           "fused_cost_volume": fused_cost_volume,
+           "sweep_gwc": sweep_gwc}
 
 
 def reset_launch_counts() -> None:

@@ -1,6 +1,6 @@
 """Cost-volume aggregation and depth regression.
 
-Counterpart of wildmvs/ops/volumes.py:67-141, 165-179, 215-234. Layout:
+Counterpart of wildmvs/ops/volumes.py:67-234. Layout:
 volumes [B, D, H, W, C], probability volumes [B, D, H, W]. The running sums
 are f32 whatever the feature dtype (E[x^2] - E[x]^2 cancels badly in bf16)
 and are updated in place, so one source volume at a time is live besides
@@ -99,6 +99,49 @@ def softmin_cost_volume(ref_feature: torch.Tensor,
             sum_exp.add_(e)
             sum_val.addcmul_(diff, e)
     return (sum_val / (sum_exp + eps)).to(ref_feature.dtype)
+
+
+def groupwise_correlation(v1: torch.Tensor, v2: torch.Tensor,
+                          groups: int) -> torch.Tensor:
+    """Group-wise correlation over the trailing channel axis (reference
+    VisMVSNet nn_utils.py:473-490, channels-last): v1, v2 [..., C] ->
+    [..., groups], the dot product of each group of C/groups channels."""
+    c = v1.shape[-1]
+    if c % groups:
+        raise ValueError(f"{c} channels do not split into {groups} groups")
+    a = v1.reshape(v1.shape[:-1] + (groups, c // groups))
+    b = v2.reshape(v2.shape[:-1] + (groups, c // groups))
+    return (a * b).sum(-1)
+
+
+def soft_argmin(score_volume: torch.Tensor, window: int | None = None):
+    """Softmax over depth and the expected class index (reference
+    nn_utils.py:453-466).
+
+    Args:
+      score_volume: [B, D, H, W] raw scores.
+      window: if set, also return the probability mass within +-window of
+        the expected index (Vis-MVSNet's photometric confidence, window=2).
+    Returns:
+      (prob [B, D, H, W], expected index [B, H, W][, prob_map [B, H, W]]).
+    """
+    prob = torch.softmax(score_volume, dim=1)
+    d = score_volume.shape[1]
+    index = torch.arange(d, dtype=prob.dtype,
+                         device=prob.device).reshape(1, d, 1, 1)
+    out = (index * prob).sum(1, keepdim=True)
+    if window is None:
+        return prob, out[:, 0]
+    mask = ((index - out).abs() <= window).to(prob.dtype)
+    return prob, out[:, 0], (prob * mask).sum(1)
+
+
+def entropy(prob_volume: torch.Tensor, axis: int = 1,
+            keepdims: bool = False) -> torch.Tensor:
+    """Shannon entropy over the depth axis, log clamped to [1e-9, 1]
+    (reference nn_utils.py:469-470)."""
+    p = prob_volume
+    return (-p * torch.log(p.clamp(1e-9, 1.0))).sum(axis, keepdim=keepdims)
 
 
 def depth_regression(prob_volume: torch.Tensor,

@@ -17,17 +17,22 @@ def eval_model_kwargs(architecture: str, bf16: bool = True,
                       sweep_method: str = "auto") -> dict:
     """Eval-time model constructor overrides and the output depthmap scale
     (depth resolution = image resolution / downscale). Inference defaults
-    to bf16 networks.
+    to bf16 networks. vis_mvsnet sweeps (64, 32, 16) hypotheses at interval
+    scales (2, 1, 0.5) (reference pipeline_utils.py:142-144; the JAX
+    package's eval_model_kwargs, depthmaps.py:60-74).
 
-    Only the MVSNet family is ported; vis_mvsnet and cvp_mvsnet raise
-    (ROADMAP Queue 1 #9, #10)."""
-    if architecture not in ("mvsnet", "mvsnet-s"):
+    cvp_mvsnet is not ported yet and raises (ROADMAP Queue 1 #10)."""
+    if architecture not in ("mvsnet", "mvsnet-s", "vis_mvsnet"):
         raise NotImplementedError(
-            f"{architecture}: the port runs mvsnet and mvsnet-s only "
-            f"(vis_mvsnet and cvp_mvsnet are ROADMAP Queue 1 #9 and #10)")
+            f"{architecture}: the port runs mvsnet, mvsnet-s and vis_mvsnet "
+            f"(cvp_mvsnet is ROADMAP Queue 1 #10)")
     kwargs = {"sweep_method": sweep_method}
     if bf16:
         kwargs["dtype"] = torch.bfloat16
+    if architecture == "vis_mvsnet":
+        kwargs.update(depth_nums=(64, 32, 16),
+                      interval_scales=(2.0, 1.0, 0.5))
+        return {"kwargs": kwargs, "downscale": 2}
     return {"kwargs": kwargs, "downscale": 4}
 
 

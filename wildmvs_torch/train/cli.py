@@ -1,18 +1,20 @@
 """Training CLI: the epoch loop on one card.
 
 Counterpart of wildmvs/train/cli.py:97-340 (reference train.py:64-252) for
-MVSNet supervised training on the synthetic dataset:
+MVSNet and Vis-MVSNet supervised training on the synthetic dataset:
 
   python -m wildmvs_torch.train.cli --dataset synthetic --num_depth 16 --debug
   python -m wildmvs_torch.train.cli --device cpu --dataset synthetic \
       --num_depth 16 --debug
+  python -m wildmvs_torch.train.cli --device cpu --dataset synthetic \
+      --architecture vis_mvsnet --debug
 
 Runs on "cuda" unless `--device cpu` is given. Each epoch trains, writes
 `<logdir>/model_{epoch:06d}.ckpt` every `--save_freq` epochs, then runs the
 validation loss and the test metrics; scalar logs go to `<logdir>/logs.txt`.
 Not ported yet, and raising NotImplementedError with their ROADMAP item:
-real datasets (dtu, md, blended), --unsupervised and --occ_masking,
---world_size > 1, --remat and --trace.
+--architecture cvp_mvsnet, real datasets (dtu, md, blended), --unsupervised
+and --occ_masking, --world_size > 1, --remat and --trace.
 """
 from __future__ import annotations
 
@@ -138,7 +140,9 @@ def main(argv=None):
     p.add_argument("--wd", type=float, default=0.0)
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--num_im_train", type=int, default=3)
-    p.add_argument("--num_depth", type=int, default=192)
+    p.add_argument("--num_depth", type=int, default=192,
+                   help="hypotheses of mvsnet and mvsnet-s (vis_mvsnet sweeps "
+                        "its own per-stage counts)")
     p.add_argument("--occ_masking", action="store_true")
     sup = p.add_mutually_exclusive_group()
     sup.add_argument("--supervised", dest="supervised", action="store_true")

@@ -12,15 +12,30 @@ numpy alone (the port never imports jax or wildmvs):
 
 Path rules (flax module names mirror the reference's):
   <m>/deconv/kernel      -> <m>.0.weight       (transposed Sequential block)
+  <m>/<x>_deconv/kernel  -> <m>.<x>_deconv.weight, transposed layout
   <m>/bn/bn/<leaf>       -> <m>.1.<leaf'> when <m> is a transposed block,
                             else <m>.bn.<leaf'>
+  <m>/bn/<leaf>          -> <m>.<leaf'>        (a bare BatchNorm wrapper)
   2D <m>/conv/kernel     -> <m>.weight         (flax nests nn.Conv as "conv")
   3D <m>/kernel          -> <m>.weight
   temp                   -> temp
+and then Vis-MVSNet's module names become the reference's (`_VIS_RULES`):
+  UNet enc<i>/block<j> -> enc_blocks.<prefix><scale>_<i>.<j>,
+  dec<i>_deconv / dec<i>_conv / dec<i>_res/block<j> ->
+  dec_blocks.<prefix><scale>_<i>.0 / .1 / .2.<j> (prefix and scales of the
+  reference's registration, nn_utils.py:196-255); BasicBlock conv1/bn,
+  conv2/bn, downsample_conv, downsample_bn -> conv1, bn1, conv2, bn2,
+  downsample.0, downsample.1; init_conv and UncertNet conv<k>
+  Sequentials -> .0 / .1; UncertNet head<k> -> head_convs.<k>; the bare
+  reg_pair conv -> reg_pair.final_conv. These are the keys of the JAX
+  package's model of the reference (tests/test_torch_import.py
+  `reference_vis_state_dict`); no reference Vis-MVSNet checkpoint was at
+  hand to check them against.
 """
 from __future__ import annotations
 
 import json
+import re
 from pathlib import Path
 
 import numpy as np
@@ -28,6 +43,45 @@ import torch
 
 _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
               "var": "running_var"}
+
+
+# Vis-MVSNet UNets: (reference registration prefix, initial scale, encoder
+# levels), by the module that owns the UNet (model_cas.py:18-74)
+_VIS_UNETS = {"feat_ext": ("2d", 2, 3), "reg": ("reg1", 4, 2),
+              "reg_fuse": ("reg2", 4, 2)}
+
+
+def _unet_key(m: re.Match) -> str:
+    prefix, scale0, levels = _VIS_UNETS[m.group(1)]
+    kind, idx = m.group(2), int(m.group(3))
+    if kind == "enc":
+        return f"{m.group(1)}.unet.enc_blocks.{prefix}{scale0 << idx}_{idx}."
+    scale = scale0 << (2 * levels - idx)
+    part = {"_deconv": "0", "_conv": "1", "_res": "2"}[m.group(4)]
+    return f"{m.group(1)}.unet.dec_blocks.{prefix}{scale}_{idx}.{part}."
+
+
+# generic key -> reference key, in order
+_VIS_RULES = [
+    (re.compile(r"(?<=\.)(feat_ext|reg|reg_fuse)\.unet\.(enc|dec)(\d+)"
+                r"(_deconv|_conv|_res)?\."), _unet_key),
+    (re.compile(r"\.block(\d+)\.conv([12])\.conv\."), r".\1.conv\2."),
+    (re.compile(r"\.block(\d+)\.conv([12])\.bn\."), r".\1.bn\2."),
+    (re.compile(r"\.block(\d+)\.downsample_conv\."), r".\1.downsample.0."),
+    (re.compile(r"\.block(\d+)\.downsample_bn\."), r".\1.downsample.1."),
+    (re.compile(r"(\.unet\.dec_blocks\.[^.]+\.2\.)block(\d+)\."), r"\1\2."),
+    (re.compile(r"\.(init_conv|uncert_net\.conv\d)\.conv\."), r".\1.0."),
+    (re.compile(r"\.(init_conv|uncert_net\.conv\d)\.bn\."), r".\1.1."),
+    (re.compile(r"\.uncert_net\.head(\d+)\."), r".uncert_net.head_convs.\1."),
+    (re.compile(r"\.reg_pair\.weight$"), ".reg_pair.final_conv.weight"),
+]
+
+
+def _vis_key(key: str) -> str:
+    key = "." + key                   # every module name after a dot
+    for pat, repl in _VIS_RULES:
+        key = pat.sub(repl, key)
+    return key[1:]
 
 
 def _flatten(tree, prefix=()):
@@ -48,14 +102,18 @@ def state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
     for path, val in leaves:
         val = np.asarray(val)
         *mods, leaf = path
-        if mods and mods[-1] == "deconv":
+        if mods and mods[-1].endswith("deconv"):
             nd = val.ndim - 2
-            key = mods[:-1] + ["0", "weight"]
+            key = (mods[:-1] + ["0", "weight"] if mods[-1] == "deconv"
+                   else mods + ["weight"])
             val = val.transpose((nd, nd + 1) + tuple(range(nd)))
-        elif mods[-2:] == ["bn", "bn"]:
-            block = tuple(mods[:-2])
-            key = list(block) + ["1" if block in deconv_blocks else "bn",
-                                 _BN_LEAVES[leaf]]
+        elif mods[-1:] == ["bn"] and leaf in _BN_LEAVES:
+            if mods[-2:] == ["bn", "bn"]:
+                block = tuple(mods[:-2])
+                key = list(block) + ["1" if block in deconv_blocks else "bn",
+                                     _BN_LEAVES[leaf]]
+            else:                         # a bare BatchNorm wrapper
+                key = mods[:-1] + [_BN_LEAVES[leaf]]
             if leaf == "mean":
                 sd[".".join(key[:-1] + ["num_batches_tracked"])] = \
                     torch.tensor(0)
@@ -69,7 +127,7 @@ def state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
         else:
             key = mods + [leaf]
         sd[".".join(key)] = torch.from_numpy(np.ascontiguousarray(val))
-    return sd
+    return {_vis_key(k): v for k, v in sd.items()}
 
 
 def load_params_npz(path: str | Path):
@@ -96,8 +154,9 @@ def load_weights(path: str | Path):
 
     `.npz`: a JAX `save_params_npz` file, carried by `state_dict_from_jax`.
     Any other file: a reference torch checkpoint ({"model": state_dict,
-    "architecture": ...} or a bare state_dict, DDP "module." prefixes
-    dropped), whose keys are the port's already. Orbax directories are not
+    "architecture": ...} or a bare state_dict; the DDP "module." prefix and
+    the Vis-MVSNet Frontend's "model." prefix are dropped), whose keys are
+    the port's already. Orbax directories are not
     read yet (ROADMAP Queue 1 #7).
     """
     path = Path(path)
@@ -110,6 +169,6 @@ def load_weights(path: str | Path):
         return state_dict_from_jax(params, stats), meta.get("architecture")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt.get("model", ckpt)
-    sd = {k.removeprefix("module."): v for k, v in sd.items()
-          if torch.is_tensor(v)}
+    sd = {k.removeprefix("module.").removeprefix("model."): v
+          for k, v in sd.items() if torch.is_tensor(v)}
     return sd, ckpt.get("architecture")

@@ -7,10 +7,13 @@ TrainState become eager steps over a `TrainState` holding the model, its
 optimizer and the step count; the model keeps its BatchNorm statistics as
 buffers, updated by the train-mode forward.
 
+Architectures: mvsnet, mvsnet-s (num_depth hypotheses) and vis_mvsnet
+(the JAX defaults: depth_nums (32, 16, 8), interval_scales (4, 2, 1)).
+
 Precision: parameters, BatchNorm statistics, optimizer state and the loss
 are f32. With train_dtype="bfloat16" the model is built with bf16 compute
-and f32 parameters (models/mvsnet.py `param_dtype`): the convolutions run in
-bf16 under autocast, the parameters themselves stay f32.
+and f32 parameters (`param_dtype`): the convolutions run in bf16 under
+autocast, the parameters themselves stay f32.
 
 Model-output contract (models/api.py): depth_est_list entries are [B, h, w]
 (finest first); depth_pair_list entries are lists of
@@ -31,7 +34,11 @@ from ..models import build_model
 from .config import TrainConfig
 from .metrics import depth_metrics
 
-ARCHITECTURES = ("mvsnet", "mvsnet-s")
+ARCHITECTURES = ("mvsnet", "mvsnet-s", "vis_mvsnet")
+#: vis_mvsnet's test-time sweep (reference models/trainer.py:290-296),
+#: passed as forward kwargs
+VIS_TEST_KWARGS = {"depth_nums": (64, 32, 16),
+                   "interval_scales": (2.0, 1.0, 0.5)}
 
 
 @dataclasses.dataclass
@@ -47,8 +54,8 @@ def create_model(config: TrainConfig, device=None) -> torch.nn.Module:
     `config.seed`), on `device` ("cuda" unless "cpu" is asked for)."""
     if config.architecture not in ARCHITECTURES:
         raise NotImplementedError(
-            f"{config.architecture}: the port trains mvsnet and mvsnet-s "
-            f"only (vis_mvsnet and cvp_mvsnet are ROADMAP Queue 1 #9, #10)")
+            f"{config.architecture}: the port trains mvsnet, mvsnet-s and "
+            f"vis_mvsnet (cvp_mvsnet is ROADMAP Queue 1 #10)")
     for flag in ("remat", "remat_levels", "packed_training"):
         if getattr(config, flag):
             raise NotImplementedError(
@@ -57,7 +64,9 @@ def create_model(config: TrainConfig, device=None) -> torch.nn.Module:
         raise NotImplementedError(
             "hyp_axis (depth-slab sharding) is not ported yet (ROADMAP "
             "Queue 1 #12)")
-    kwargs = {"num_depth": config.num_depth, "batched_bn": config.batched_bn}
+    kwargs = {"batched_bn": config.batched_bn}
+    if config.architecture.startswith("mvsnet"):
+        kwargs["num_depth"] = config.num_depth
     if config.train_dtype == "bfloat16":
         kwargs.update(dtype=torch.bfloat16, param_dtype=torch.float32)
     elif config.train_dtype != "float32":
@@ -187,11 +196,15 @@ def eval_step(state: TrainState, batch: dict, config: TrainConfig) -> dict:
 @torch.no_grad()
 def test_step(state: TrainState, batch: dict, config: TrainConfig) -> dict:
     """Depth metrics against GT at full resolution (reference
-    models/trainer.py:280-321); mvsnet has no test-time override."""
+    models/trainer.py:280-321). vis_mvsnet sweeps VIS_TEST_KWARGS, given
+    as forward kwargs as the JAX trainer gives them (trainer.py:290-296),
+    so its slabs re-centre with the module's interval_scales; mvsnet has
+    no test-time override."""
     model = state.model
     model.eval()
+    kwargs = VIS_TEST_KWARGS if config.architecture == "vis_mvsnet" else {}
     out = model(batch["imgs"], batch["K"], batch["R"], batch["t"],
-                batch["depth_min"], batch["depth_max"])
+                batch["depth_min"], batch["depth_max"], **kwargs)
     gt = batch["depth"]
     est = resize_bilinear(out["depth"].float(), tuple(gt.shape[1:3]))
     return depth_metrics(est, gt, batch["mask"], batch["depth_min"][:, 0],
