@@ -48,9 +48,18 @@ Phase 1 also holds sweep_warp_backward to its plain version ([D], [D,H,W]
 and the behind-camera rig) and times it against torch's
 grid_sampler_2d_backward, and holds the Vis-convention kernels (sweep_gwc,
 sweep_warp and sweep_warp_backward with the coordinate scale and clamp) to
-their plain versions at the Vis eval's stage-1 and stage-3 shapes, on a
-source under 21 px and on a rig partly behind the source camera, and times
-them.
+their plain versions at the Vis eval's stage-1, stage-2 and stage-3
+shapes, on a source under 21 px and on a rig partly behind the source
+camera, and times them. The two footprint kernels (fused_cost_volume,
+sweep_gwc: csrc/footprint.cuh) are also held to their plain versions on a
+ragged shape (RAGGED: a reference grid no multiple of their tile, D no
+multiple of their run) and on a grazing rig whose launch mixes stages
+staged in shared memory with stages read from device memory; the fused
+kernel also at 6, 8 and 16 source views (FUSED_VIEWS), where its stage
+buffers shrink or vanish to keep the block's shared memory in bounds; at
+each timed shape the kernel's own count of staged stages is printed
+beside the share that the plain rule (sweep_footprints) predicts. Phase 3
+times the fused kernel at the eval shapes by CUDA-graph replay too.
 
 Prints the card, the kernels' register/spill summary and one line per
 phase, then a `kernels` JSON line and, last, the device JSON line.
@@ -101,11 +110,43 @@ VIS_PLANE = dict(plane=(-30.0, 0.12, -0.08), extent=320.0, seed=0)
 VIS_EVAL_DEPTHS = (64, 32, 16)
 VIS_EVAL_SCALES = (2.0, 1.0, 0.5)
 VIS_STAGE_SCALE = (8, 4, 2)
+# degrees: the source view of the grazing rig (phase 1)
+GRAZING_AZIMUTH = 60.0
+# the ragged case of phase 1: a reference grid that is no multiple of the
+# footprint kernels' 8x8 tile, and D no multiple of their run
+RAGGED = (100, 150, 37)
+# source views of the extra fused cases of phase 1 at the headline's
+# feature shape: 6 shares the block's shared memory among smaller stage
+# buffers, 8 and 16 read every sample from device memory
+FUSED_VIEWS = (6, 8, 16)
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def camera_on_sphere(az: float, el: float):
+    """(R [3, 3], t [3, 1]) f32 of a camera on the 650 mm sphere at
+    azimuth az and elevation el (radians), looking at the origin."""
+    up = np.array([0.0, -1.0, 0.0])
+    d = np.array([np.sin(az) * np.cos(el), np.sin(el),
+                  -np.cos(az) * np.cos(el)])
+    eye = -650.0 * d
+    z = -eye / np.linalg.norm(eye)
+    x = np.cross(up, z)
+    x /= np.linalg.norm(x)
+    R = np.stack([x, np.cross(z, x), z]).astype(np.float32)
+    return R, (-R @ eye).astype(np.float32).reshape(3, 1)
+
+
+def grazing(R, t, v: int = 1):
+    """The rig with view v moved to GRAZING_AZIMUTH: it sees the sweep's
+    fronto-parallel planes obliquely, so that some tiles' footprints pass
+    the shared-memory budget while the rest are staged."""
+    R, t = R.copy(), t.copy()
+    R[v], t[v] = camera_on_sphere(np.deg2rad(GRAZING_AZIMUTH), 0.0)
+    return R, t
 
 
 def dtu_scene(seed: int, n: int, h: int, w: int, f: float):
@@ -115,20 +156,12 @@ def dtu_scene(seed: int, n: int, h: int, w: int, f: float):
     rng = np.random.default_rng(seed)
     imgs = rng.random((n, h, w, 3), dtype=np.float32)
     K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float32)
-    up = np.array([0.0, -1.0, 0.0])
     Rs, ts = [], []
     for i in range(n):
-        az = np.deg2rad(6.0) * ((i + 1) // 2) * (-1) ** i
-        el = np.deg2rad(3.0) * (i % 3 - 1)
-        d = np.array([np.sin(az) * np.cos(el), np.sin(el),
-                      -np.cos(az) * np.cos(el)])
-        eye = -650.0 * d
-        z = -eye / np.linalg.norm(eye)
-        x = np.cross(up, z)
-        x /= np.linalg.norm(x)
-        R = np.stack([x, np.cross(z, x), z]).astype(np.float32)
+        R, t = camera_on_sphere(np.deg2rad(6.0) * ((i + 1) // 2) * (-1) ** i,
+                                np.deg2rad(3.0) * (i % 3 - 1))
         Rs.append(R)
-        ts.append((-R @ eye).astype(np.float32).reshape(3, 1))
+        ts.append(t)
     return (imgs, np.stack([K] * n), np.stack(Rs), np.stack(ts),
             np.full(n, DEPTH_RANGE[0], np.float32),
             np.full(n, DEPTH_RANGE[1], np.float32))
@@ -221,6 +254,26 @@ def compare(name, got, want, extra=""):
           f"(scale {scale:.4g}){extra}", flush=True)
     check(err <= limit, f"{name}: kernel vs plain {err} > {limit}")
     return err
+
+
+def tile_shares(launch, P, Q, s, src_hw, plan, scale=sk.UNIT_SCALE,
+                clamp=None):
+    """The staged share of one launch of a footprint kernel as the kernel
+    counts it on the card (staged / all stages of a tile, view and run),
+    beside the plain rule's (sk.sweep_footprints) for the same planes,
+    hypotheses, run and plan (tile_h, cells_max: sk.fused_plan or
+    sk.footprint_plan). Returns (kernel share, plain share, (staged,
+    global))."""
+    with sk.counting_tiles(P.device) as counter:
+        launch()
+        torch.cuda.synchronize()
+        staged, glob = counter.tolist()
+    tile_h, cells_max = plan
+    plain, _ = sk.sweep_footprints(P, Q, s, (tile_h, sk.FOOTPRINT_TILE_W),
+                                   src_hw, scale, clamp, sk.FOOTPRINT_D_RUN,
+                                   cells_max)
+    return (staged / max(staged + glob, 1), plain.float().mean().item(),
+            (staged, glob))
 
 
 def compare_backward(g, P, Q, s, src_hw, case, scale=sk.UNIT_SCALE,
@@ -430,6 +483,26 @@ def phase1_kernels(dev):
            torch.stack([Q_b, Q[:, 1]], 1), s, temp, "variance")
     compare("fused_cost_volume behind-camera rig", sk.fused_cost_volume(*a_b),
             sk.fused_cost_volume_plain(*a_b))
+    rh, rw, rd = RAGGED
+    for agg in ("variance", "softmin"):
+        a_r = (ref[:, :rh, :rw].contiguous(), srcs,
+               P[..., :rh, :rw].contiguous(), Q[..., :rh, :rw].contiguous(),
+               s[:, :rd].contiguous(), temp, agg)
+        compare(f"fused_cost_volume ragged {rh}x{rw} D{rd} {agg}",
+                sk.fused_cost_volume(*a_r), sk.fused_cost_volume_plain(*a_r))
+    proj_g = feature_projections(K, *grazing(R, t), dev)
+    P_g, Q_g = sk.mvsnet_planes(proj_g[:, 1], proj_g[:, 0], (fh, fw))
+    a_g = (ref, srcs, torch.stack([P_g, P[:, 1]], 1),
+           torch.stack([Q_g, Q[:, 1]], 1), s, temp, "variance")
+    share, plain_share, (n_st, n_gl) = tile_shares(
+        lambda: sk.fused_cost_volume(*a_g), a_g[2], a_g[3], s, (fh, fw),
+        sk.fused_plan(C, 2))
+    check(n_st > 0 and n_gl > 0, f"the grazing rig's launch did not mix "
+          f"staged and global stages: {n_st} and {n_gl}")
+    compare("fused_cost_volume grazing rig", sk.fused_cost_volume(*a_g),
+            sk.fused_cost_volume_plain(*a_g),
+            f" staged {n_st} global {n_gl}: share {share:.4f} (plain rule "
+            f"{plain_share:.4f})")
     a = fused_args[("variance", "D")]
     out = sk.fused_cost_volume(*a)
     err = compare("fused_cost_volume variance (timed)", out,
@@ -440,17 +513,48 @@ def phase1_kernels(dev):
     plain_ms = cuda_ms(lambda: sk.fused_cost_volume_plain(*a), reps=3,
                        warmup=1)
     (b_ms, b_by), n_live = fused_bound(ref, srcs, P, Q, s, out)
+    share, plain_share, _ = tile_shares(
+        lambda: sk.fused_cost_volume(*a), P, Q, s, (fh, fw),
+        sk.fused_plan(C, P.shape[1]))
     results["fused_cost_volume"] = dict(
         name="fused_cost_volume", route="cuda",
         source="wildmvs_torch/csrc/sweep.cu",
         replaces="wildmvs/ops/mosaic_sweep.py:811",
         max_abs_err=err, ms=ms, events_ms=events_ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, staged_share=share,
+        plain_staged_share=plain_share, softmin_ms=ms_softmin)
     print(f"phase1 fused_cost_volume: variance ms {ms:.4f} (events "
           f"{events_ms:.4f}) softmin ms "
           f"{ms_softmin:.4f} plain_ms {plain_ms:.3f} bound_ms {b_ms:.4f} "
           f"({b_by}) live samples {n_live} library_ms none (no single "
-          f"torch call aggregates the views)", flush=True)
+          f"torch call aggregates the views); staged share {share:.4f} "
+          f"(plain rule {plain_share:.4f})", flush=True)
+
+    # --- fused_cost_volume over more source views (the DTU-like rig grown
+    # by 6-degree steps), each launch's plan from sk.fused_plan
+    views = {}
+    for nv in FUSED_VIEWS:
+        ref_v, srcs_v, P_v, Q_v, *_ = kernel_inputs(dict(HEADLINE, n=nv + 1),
+                                                    dev)
+        a_v = (ref_v, srcs_v, P_v, Q_v, s, temp, "variance")
+        plan = sk.fused_plan(C, nv)
+        share, plain_share, _ = tile_shares(
+            lambda: sk.fused_cost_volume(*a_v), P_v, Q_v, s, (fh, fw), plan)
+        out = sk.fused_cost_volume(*a_v)
+        err = compare(f"fused_cost_volume NV={nv}", out,
+                      sk.fused_cost_volume_plain(*a_v))
+        ms = graph_ms(lambda: sk.fused_cost_volume(*a_v))
+        (b_ms, b_by), _ = fused_bound(*a_v[:5], out)
+        views[str(nv)] = dict(max_abs_err=err, ms=ms, bound_ms=b_ms,
+                              bound_by=b_by, cells_max=plan[1],
+                              staged_share=share,
+                              plain_staged_share=plain_share)
+        print(f"phase1 fused_cost_volume NV={nv}: ms {ms:.4f} bound_ms "
+              f"{b_ms:.4f} ({b_by}); one stage buffer of {plan[1]} cells "
+              f"for the {nv} views, staged share {share:.4f} (plain rule "
+              f"{plain_share:.4f})", flush=True)
+        del ref_v, srcs_v, P_v, Q_v, a_v, out
+    results["fused_cost_volume"]["views"] = views
     return results
 
 
@@ -586,11 +690,16 @@ def phase3_eval(pred, dev):
     compare("fused_cost_volume variance at the eval shapes", out,
             sk.fused_cost_volume_plain(*a))
     del out
-    kernel_ms = cuda_ms(lambda: sk.fused_cost_volume(*a), reps=10)
+    kernel_ms = graph_ms(lambda: sk.fused_cost_volume(*a), reps=10)
+    share, plain_share, _ = tile_shares(
+        lambda: sk.fused_cost_volume(*a), P, Q, s, tuple(srcs.shape[2:4]),
+        sk.fused_plan(ref.shape[-1], P.shape[1]))
     (b_ms, b_by), _ = fused_bound(*a[:5], torch.empty(
         (1, NUM_DEPTH) + ref.shape[1:], dtype=torch.bfloat16, device=dev))
     print(f"phase3 fused_cost_volume 296x400 C32 D192 NV4: ms "
-          f"{kernel_ms:.4f} bound_ms {b_ms:.4f} ({b_by})", flush=True)
+          f"{kernel_ms:.4f} (CUDA-graph replay) bound_ms {b_ms:.4f} ({b_by})"
+          f"; staged share {share:.4f} (plain rule {plain_share:.4f})",
+          flush=True)
     del a, ref, srcs, P, Q, s
     torch.cuda.empty_cache()
 
@@ -608,7 +717,9 @@ def phase3_eval(pred, dev):
           f"{ms:.3f} (first {first_ms:.3f}), peak memory "
           f"{peak / 2**30:.3f} GiB", flush=True)
     return dict(eval_ms=ms, eval_peak_gib=peak / 2 ** 30,
-                eval_kernel_ms=kernel_ms, eval_kernel_bound_ms=b_ms)
+                eval_kernel_ms=kernel_ms, eval_kernel_bound_ms=b_ms,
+                eval_kernel_staged_share=share,
+                eval_kernel_plain_staged_share=plain_share)
 
 
 def phase4_depthmaps(pred):
@@ -781,13 +892,14 @@ def vis_scene(n: int, h: int, w: int, f: float):
 
 
 def vis_kernel_inputs(dev, cfg, stage, D, per_pixel, behind=False, v=1,
-                      C=32):
+                      C=32, graze=False):
     """Seeded bf16 features and the Vis sweep of one pair (view v against
     view 0) at one cascade stage of the bench scene `cfg`: (src, ref, P, Q,
     s, scale, clamp). Per-pixel hypotheses centre a slab of D stage
     intervals on the plane's GT depth; per-plane ones span the whole depth
     range. `behind` moves the source camera 600 mm ahead along the
-    reference axis, so the nearer hypotheses lie behind it."""
+    reference axis, so the nearer hypotheses lie behind it; `graze` moves
+    it to GRAZING_AZIMUTH (`grazing`)."""
     (_, K, R, t, dmin, dmax), depths = vis_scene(**cfg)
     sc = VIS_STAGE_SCALE[stage - 1]
     fh, fw = cfg["h"] // sc, cfg["w"] // sc
@@ -795,6 +907,8 @@ def vis_kernel_inputs(dev, cfg, stage, D, per_pixel, behind=False, v=1,
     if behind:
         R[v] = R[0]
         t[v] = t[0] - np.array([[0.0], [0.0], [600.0]], np.float32)
+    if graze:
+        R, t = grazing(R, t, v)
     Ks = scale_K(torch.from_numpy(K).to(dev), 1.0 / sc)
     Rt, tt = torch.from_numpy(R).to(dev), torch.from_numpy(t).to(dev)
     P, Q, scale, clamp = sk.vis_planes(
@@ -840,8 +954,10 @@ def gwc_library(src, ref, grid):
 
 def phase1_vis_kernels(dev, results):
     """The Vis-convention kernels vs their plain versions: sweep_gwc at the
-    1184x1600 eval's stage-1 ([D], 148x200, D=64) and stage-3 ([D,H,W],
-    592x800, D=16) shapes, sweep_warp and sweep_warp_backward at the
+    1184x1600 eval's stage-1 ([D], 148x200, D=64), stage-2 ([D,H,W],
+    296x400, D=32) and stage-3 ([D,H,W], 592x800, D=16) shapes, on a
+    ragged crop of stage 1 (RAGGED) and on the grazing rig (staged and
+    global stages in one launch); sweep_warp and sweep_warp_backward at the
     512x640 training's stage-3 shape (256x320, D=8, [D,H,W]); a source
     under 21 px (stage 1 of a 64x80 image, 8x10) and a rig partly behind
     the source camera for all three. Adds the timings to `results`."""
@@ -851,6 +967,7 @@ def phase1_vis_kernels(dev, results):
     # (scene, stage, D, per-pixel, behind, source view); the 8x10 source
     # is the widest pair (12 degrees) of its rig, so that samples leave it
     cases = {"eval stage 1 [D]": (ev, 1, 64, False, False, 1),
+             "eval stage 2 [D,H,W]": (ev, 2, 32, True, False, 1),
              "eval stage 3 [D,H,W]": (ev, 3, 16, True, False, 1),
              "train stage 3 [D,H,W]": (tr, 3, 8, True, False, 1),
              "source 8x10 [D]": (small, 1, 32, False, False, 4),
@@ -882,9 +999,31 @@ def phase1_vis_kernels(dev, results):
             check(bool(((x < clamp[0]) | (x > clamp[1])).any()),
                   "the small-source case never clamps")
 
-    # --- sweep_gwc timings: stage 3 (the largest) and stage 1 ---------------
+    # sweep_gwc on a ragged crop of stage 1 and on the grazing rig
+    rh, rw, rd = RAGGED
+    src, ref, P, Q, s, scale, clamp = inputs["eval stage 1 [D]"]
+    vis = (P[..., :rh, :rw].contiguous(), Q[..., :rh, :rw].contiguous(),
+           s[:, :rd].contiguous(), scale, clamp)
+    compare(f"sweep_gwc ragged {rh}x{rw} D{rd}",
+            sk.sweep_gwc(src, ref[:, :rh, :rw].contiguous(), *vis),
+            sk.sweep_gwc_plain(src, ref[:, :rh, :rw].contiguous(), *vis))
+    src, ref, P, Q, s, scale, clamp = vis_kernel_inputs(
+        dev, ev, 1, 64, False, graze=True)
+    vis = (P, Q, s, scale, clamp)
+    share, plain_share, (n_st, n_gl) = tile_shares(
+        lambda: sk.sweep_gwc(src, ref, *vis), P, Q, s, tuple(src.shape[1:3]),
+        sk.footprint_plan(src.shape[-1]), scale, clamp)
+    check(n_st > 0 and n_gl > 0, f"the grazing rig's launch did not mix "
+          f"staged and global stages: {n_st} and {n_gl}")
+    compare("sweep_gwc grazing rig", sk.sweep_gwc(src, ref, *vis),
+            sk.sweep_gwc_plain(src, ref, *vis),
+            f" staged {n_st} global {n_gl}: share {share:.4f} (plain rule "
+            f"{plain_share:.4f})")
+
+    # --- sweep_gwc timings: the three eval stages ---------------------------
     times = {}
-    for case in ("eval stage 1 [D]", "eval stage 3 [D,H,W]"):
+    for case in ("eval stage 1 [D]", "eval stage 2 [D,H,W]",
+                 "eval stage 3 [D,H,W]"):
         src, ref, P, Q, s, scale, clamp = inputs[case]
         vis = (P, Q, s, scale, clamp)
         _, h, w, C = src.shape
@@ -901,19 +1040,24 @@ def phase1_vis_kernels(dev, results):
         D, H, W = out.shape[1:4]
         b_ms, b_by = bound(nbytes(src, ref, P, Q, s, out),
                            n_live * C * 10 + D * H * W * 20)
+        share, plain_share, _ = tile_shares(
+            lambda: sk.sweep_gwc(src, ref, *vis), P, Q, s, (h, w),
+            sk.footprint_plan(C), scale, clamp)
         times[case] = dict(max_abs_err=err, ms=ms, events_ms=events_ms,
                            plain_ms=plain_ms, library_ms=library_ms,
-                           bound_ms=b_ms, bound_by=b_by)
+                           bound_ms=b_ms, bound_by=b_by, staged_share=share,
+                           plain_staged_share=plain_share)
         print(f"phase1 sweep_gwc {case}: ms {ms:.4f} (events "
               f"{events_ms:.4f}) plain_ms "
               f"{plain_ms:.3f} library_ms {library_ms:.4f} (bf16 grid_sample"
               f" + group sum, two calls) bound_ms {b_ms:.4f} ({b_by}) live "
-              f"samples {n_live}", flush=True)
+              f"samples {n_live}; staged share {share:.4f} (plain rule "
+              f"{plain_share:.4f})", flush=True)
     results["sweep_gwc"] = dict(
         name="sweep_gwc", route="cuda", source="wildmvs_torch/csrc/gwc.cu",
         replaces="wildmvs/ops/mosaic_sweep.py:627",
         **times["eval stage 3 [D,H,W]"],
-        stage1=times["eval stage 1 [D]"])
+        stage1=times["eval stage 1 [D]"], stage2=times["eval stage 2 [D,H,W]"])
 
     # --- Vis sweep_warp and its backward at the training's stage 3 ---------
     src, ref, P, Q, s, scale, clamp = inputs["train stage 3 [D,H,W]"]
@@ -1295,8 +1439,11 @@ def main() -> int:
         k["launches"] = sum(c[name] for c in paths.values())
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "events_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "launches_by_path"]
-    extra = ["vis", "stage1"]
+            "library_ms", "staged_share", "launches_by_path"]
+    extra = ["plain_staged_share", "softmin_ms", "views", "vis", "stage1",
+             "stage2"]
+    for k in kernels.values():
+        k.setdefault("staged_share", None)      # kernels without footprints
     print(json.dumps({"kernels": [{k: v[k] for k in keys + extra if k in v}
                                   for v in kernels.values()],
                       "serving": serving, "eval": evals,

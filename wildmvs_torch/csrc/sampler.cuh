@@ -111,17 +111,13 @@ __device__ __forceinline__ bool taps(float rx, float ry, float rz,
   return true;
 }
 
-// Bilinear border-zero sample of channels [c0, c0+8) of img [h, w, C] at
-// the projective point (rx, ry, rz); adds the result into acc.
-template <bool kConv>
-__device__ __forceinline__ void sample8(const __nv_bfloat16* __restrict__ img,
-                                        int h, int w, int C, int c0,
-                                        float rx, float ry, float rz,
-                                        const Convention& cv,
-                                        float acc[kVec]) {
-  int x0, y0;
-  float fx, fy;
-  if (!taps<kConv>(rx, ry, rz, cv, h, w, x0, y0, fx, fy)) return;
+// The bilinear combine of channels [c0, c0+8) of img [h, w, C] at the taps
+// (x0, y0, fx, fy) of a live sample, corners outside the image reading
+// zero; adds the result into acc.
+__device__ __forceinline__ void corners8(const __nv_bfloat16* __restrict__ img,
+                                         int h, int w, int C, int c0, int x0,
+                                         int y0, float fx, float fy,
+                                         float acc[kVec]) {
   const float wts[4] = {(1.f - fy) * (1.f - fx), (1.f - fy) * fx,
                         fy * (1.f - fx), fy * fx};
   float v[4][kVec];
@@ -140,6 +136,20 @@ __device__ __forceinline__ void sample8(const __nv_bfloat16* __restrict__ img,
   for (int k = 0; k < 4; ++k)
 #pragma unroll
     for (int i = 0; i < kVec; ++i) acc[i] += wts[k] * v[k][i];
+}
+
+// Bilinear border-zero sample of channels [c0, c0+8) of img [h, w, C] at
+// the projective point (rx, ry, rz); adds the result into acc.
+template <bool kConv>
+__device__ __forceinline__ void sample8(const __nv_bfloat16* __restrict__ img,
+                                        int h, int w, int C, int c0,
+                                        float rx, float ry, float rz,
+                                        const Convention& cv,
+                                        float acc[kVec]) {
+  int x0, y0;
+  float fx, fy;
+  if (!taps<kConv>(rx, ry, rz, cv, h, w, x0, y0, fx, fy)) return;
+  corners8(img, h, w, C, c0, x0, y0, fx, fy, acc);
 }
 
 inline int log2_exact(int g) {

@@ -18,15 +18,17 @@
 // to bf16 (round to nearest even).
 //
 // Layout: features channels-last [.., h, w, C] bf16; outputs [B, D, H, W, C]
-// bf16. One thread owns one (d, y, x, 8-channel group): a group is one
-// 16-byte load per corner, and the C/8 threads of a pixel are neighbours,
-// so a warp reads each corner of a pixel as one contiguous C*2-byte run and
-// writes a contiguous run of output. The forward kernels are bound by the
-// bytes of the output volume they write (the source maps, 1-10 MB, stay in
-// the 50 MB L2); the backward by the bytes of the gradient volume it reads.
+// bf16. In the warp and its backward one thread owns one (d, y, x, 8-channel
+// group): a group is one 16-byte load per corner, and the C/8 threads of a
+// pixel are neighbours, so a warp reads each corner of a pixel as one
+// contiguous C*2-byte run and writes a contiguous run of output. Their bound
+// is the bytes of the volume they write or read (the source maps, 1-10 MB,
+// stay in the 50 MB L2). The fused kernel stages its tile's source
+// footprints in shared memory (footprint.cuh).
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() so the caller can raise on a refused launch.
+#include "footprint.cuh"
 #include "sampler.cuh"
 
 namespace {
@@ -82,10 +84,36 @@ sweep_warp_kernel(const __nv_bfloat16* __restrict__ src,
 //     diff_v = (ref - warped_v)^2 and e_v = exp(-temp * sum_c diff_v)
 //     (model.py:141-173). The channel sum crosses the G threads of a pixel
 //     by xor-shuffles, so G must be a power of two <= 32.
-// Warped values never leave registers; only the final volume is written.
-// temp is a device pointer (no host sync for the learned temperature).
+// Warped values never leave registers; only the final volume is written,
+// with streaming stores. temp is a device pointer (no host sync for the
+// learned temperature).
+//
+// Bound: at the 512x640 headline the 251.7 MB output (HBM bytes, 0.077 ms);
+// at the 1184x1600 eval the f32 operations (0.52 ms) and the 1.455 GB
+// output (0.45 ms) about equally. On the card it is bound by the
+// instructions of its samples instead (two IEEE divisions, 32 bf16
+// conversions and 32 FMAs each, and 16 divisions a hypothesis for the
+// variance; PERF.md has the times on an H100). Design (footprint.cuh):
+// grid (tiles, runs of kDRun hypotheses, B); a block of tile_h x kTileW
+// pixels x G threads loads its reference channels, the P/Q planes of every
+// view and the run's hypotheses once, copies each view's source footprint
+// over the run into shared memory, and then walks the run's hypotheses,
+// the views inside, with the statistics of one hypothesis in registers.
+// The G threads of a pixel each compute the taps of one view
+// (wm::make_tap) and share them by shuffles. Per sample the arithmetic is
+// the plain version's (proj1, wm::taps, f32 weights, corners added in the
+// order k = 0..3, the IEEE quotient by NV + 1, one bf16 rounding);
+// samples outside the staged box read device memory through
+// wm::corners8. Outputs go out with streaming stores. The counts of staged
+// and global views go to tile_counter[0..1] unless it is null. The views
+// share one stage buffer (cells_max cells), which the wrapper sizes so that
+// a block's shared memory keeps 3 blocks on an SM for any NV
+// (sweep_kernels.fused_plan).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
+// 3 blocks an SM (at most 80 registers): faster than 2 at the headline on
+// an H100, and 4 spills more and is slower (PERF.md).
+template <int kLog2g>
+__global__ void __launch_bounds__(wm::kMaxTileThreads, 3)
 fused_cost_volume_kernel(const __nv_bfloat16* __restrict__ ref,
                          const __nv_bfloat16* __restrict__ srcs,
                          const float* __restrict__ P,
@@ -93,85 +121,114 @@ fused_cost_volume_kernel(const __nv_bfloat16* __restrict__ ref,
                          const float* __restrict__ s,
                          const float* __restrict__ temp,
                          __nv_bfloat16* __restrict__ out,
-                         int NV, int D, int H, int W, int h, int w, int C,
-                         int log2g, int s_per_pixel, int agg) {
-  const int d = blockIdx.y;
+                         unsigned long long* __restrict__ tile_counter,
+                         int NV, int D, int H, int W, int h, int w,
+                         int s_per_pixel, int agg, int tile_h,
+                         int cells_max) {
+  constexpr int log2g = kLog2g;
+  constexpr int G = 1 << kLog2g;              // threads of a pixel
+  constexpr int C = G * kVec;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const wm::Tile t = wm::make_tile(H, W, tile_h, log2g);
+  const wm::StageSmem m = wm::carve(smem, NV, cells_max, C, t.npx);
   const int b = blockIdx.z;
   const int hw = H * W;
-  const int n_thr = hw << log2g;
-  const int t0 = blockIdx.x * kThreads + threadIdx.x;
-  // Threads past the end redo the last pixel and store nothing: every lane
-  // must reach the shuffles below. n_thr is a multiple of G, so a G-lane
-  // group is either wholly live or wholly idle.
-  const bool live = t0 < n_thr;
-  const int t = live ? t0 : n_thr - 1;
-  const int g = t & ((1 << log2g) - 1);
-  const int pix = t >> log2g;
+  const int d0 = blockIdx.y * wm::kDRun;
+  const int d_end = min(d0 + wm::kDRun, D);
+  const int g = threadIdx.x & (G - 1);
   const int c0 = g * kVec;
-
-  float refv[kVec];
-  load8(ref + ((size_t)b * hw + pix) * C + c0, refv);
-  const float sv = s_per_pixel ? s[((size_t)b * D + d) * hw + pix]
-                               : s[(size_t)b * D + d];
-  const float tmp = agg ? temp[0] : 0.f;
-
-  float a1[kVec], a2[kVec];   // variance: sum, sum of squares
-                              // softmin: a1 = sum e*diff, a2 unused
-  float sum_exp = 0.f;
-#pragma unroll
-  for (int i = 0; i < kVec; ++i) {
-    a1[i] = agg ? 0.f : refv[i];
-    a2[i] = agg ? 0.f : refv[i] * refv[i];
-  }
   const size_t src_stride = (size_t)h * w * C;
-  for (int v = 0; v < NV; ++v) {
-    const size_t bv = (size_t)b * NV + v;
-    const size_t plane = bv * 3 * hw + pix;
-    const float rx = proj1(P[plane], sv, Q[plane]);
-    const float ry = proj1(P[plane + hw], sv, Q[plane + hw]);
-    const float rz = proj1(P[plane + 2 * hw], sv, Q[plane + 2 * hw]);
-    float wv[kVec];
+  const __nv_bfloat16* img_b = srcs + (size_t)b * NV * src_stride;
+
+  wm::load_tile_planes(m.pq, P, Q, b, NV, H, W, t);
+  wm::hyp_range(m.sred, m.sv, s, s_per_pixel, b, D, hw, d0, d_end, t,
+                g == 0);
+  float refv[kVec];
+  load8(ref + ((size_t)b * hw + t.pix) * C + c0, refv);
+  const float tmp = agg ? temp[0] : 0.f;
+  const float n = (float)(NV + 1);
+  __syncthreads();
+  float lo, hi;
+  wm::run_range(m.sred, lo, hi);
+  wm::block_footprints<false>(m, t, lo, hi, Convention{}, NV, h, w, log2g,
+                              cells_max);
+  __syncthreads();
+  wm::stage_all(m, img_b, src_stride, NV, h, w, C, log2g, cells_max,
+                tile_counter);
+
+  // each thread of a pixel computes the taps of one view (wm::make_tap),
+  // and the pixel's G threads share them, view by view, by shuffles
+  const int lane0 = (threadIdx.x & 31) & ~(G - 1);
+  for (int d = d0; d < d_end; ++d) {
+    const float sv = m.sv[(d - d0) * t.npx + t.slot];
+    float a1[kVec], a2[kVec];   // variance: sum, sum of squares
+                                // softmin: a1 = sum e*diff, a2 unused
+    float sum_exp = 0.f;
 #pragma unroll
-    for (int i = 0; i < kVec; ++i) wv[i] = 0.f;
-    sample8<false>(srcs + bv * src_stride, h, w, C, c0, rx, ry, rz,
-                   Convention{}, wv);
+    for (int i = 0; i < kVec; ++i) {
+      a1[i] = agg ? 0.f : refv[i];
+      a2[i] = agg ? 0.f : refv[i] * refv[i];
+    }
+    for (int v0 = 0; v0 < NV; v0 += G) {
+      wm::Tap mine{-1, 0.f, 0.f};
+      if (v0 + g < NV) {
+        const float* pqv = m.pq + (v0 + g) * 6 * t.npx + t.slot;
+        mine = wm::make_tap<false>(proj1(pqv[0], sv, pqv[3 * t.npx]),
+                                   proj1(pqv[t.npx], sv, pqv[4 * t.npx]),
+                                   proj1(pqv[2 * t.npx], sv, pqv[5 * t.npx]),
+                                   Convention{}, h, w, m.fps[v0 + g], C);
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int v = v0 + j;
+        const wm::Tap tp = wm::shfl_tap(mine, lane0 | j);
+        if (v >= NV) break;                        // uniform in the block
+        float wv[kVec];
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) wv[i] = 0.f;
+        wm::sample_tap(tp, m.buf + m.fps[v].off, m.fps[v].cols * C,
+                       img_b + v * src_stride, h, w, C, c0, wv);
+        if (agg == 0) {
+#pragma unroll
+          for (int i = 0; i < kVec; ++i) {
+            a1[i] += wv[i];
+            a2[i] += wv[i] * wv[i];
+          }
+        } else {
+          float diff[kVec];
+          float part = 0.f;
+#pragma unroll
+          for (int i = 0; i < kVec; ++i) {
+            const float dlt = refv[i] - wv[i];
+            diff[i] = dlt * dlt;
+            part += diff[i];
+          }
+#pragma unroll
+          for (int o = G >> 1; o > 0; o >>= 1)
+            part += __shfl_xor_sync(wm::kFullMask, part, o);
+          const float e = expf(-tmp * part);
+          sum_exp += e;
+#pragma unroll
+          for (int i = 0; i < kVec; ++i) a1[i] += e * diff[i];
+        }
+      }
+    }
+    float cv[kVec];
     if (agg == 0) {
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
-        a1[i] += wv[i];
-        a2[i] += wv[i] * wv[i];
+        const float mean = a1[i] / n;
+        cv[i] = a2[i] / n - mean * mean;
       }
     } else {
-      float diff[kVec];
-      float part = 0.f;
+      const float den = sum_exp + 1e-6f;
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        const float dlt = refv[i] - wv[i];
-        diff[i] = dlt * dlt;
-        part += diff[i];
-      }
-      for (int o = (1 << log2g) >> 1; o > 0; o >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, o);
-      const float e = expf(-tmp * part);
-      sum_exp += e;
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) a1[i] += e * diff[i];
+      for (int i = 0; i < kVec; ++i) cv[i] = a1[i] / den;
     }
+    if (t.live)
+      wm::store_bf16_cs<kVec>(out + (((size_t)b * D + d) * hw + t.pix) * C + c0,
+                              cv);
   }
-  float cv[kVec];
-  if (agg == 0) {
-    const float n = (float)(NV + 1);
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) {
-      const float mean = a1[i] / n;
-      cv[i] = a2[i] / n - mean * mean;
-    }
-  } else {
-    const float den = sum_exp + 1e-6f;
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) cv[i] = a1[i] / den;
-  }
-  if (live) store8(out + (((size_t)b * D + d) * hw + pix) * C + c0, cv);
 }
 
 // ---------------------------------------------------------------------------
@@ -326,23 +383,43 @@ int wm_sweep_warp_backward(const void* g, const void* P, const void* Q,
   return (int)cudaGetLastError();
 }
 
+// tile_counter: null, or 2 device counters (staged, global views of a
+// block) that the launch adds to. tile_h: rows of a block's tile (of
+// kTileW columns); cells_max: the source cells of the block's stage buffer,
+// all views together (0: every sample reads device memory).
 int wm_fused_cost_volume(const void* ref, const void* srcs, const void* P,
                          const void* Q, const void* s, const void* temp,
-                         void* out, int B, int NV, int D, int H, int W,
-                         int h, int w, int C, int s_per_pixel, int agg,
-                         void* stream) {
+                         void* out, void* tile_counter, int B, int NV, int D,
+                         int H, int W, int h, int w, int C, int s_per_pixel,
+                         int agg, int tile_h, int cells_max, void* stream) {
   const int log2g = (C % kVec) ? -1 : wm::log2_exact(C / kVec);
   if (log2g < 0 || log2g > 5 || B <= 0 || NV <= 0 || D <= 0 || H <= 0 ||
-      W <= 0 || h <= 0 || w <= 0 || B > 65535 || D > 65535 ||
-      (agg != 0 && agg != 1))
+      W <= 0 || h <= 0 || w <= 0 || h > 32767 || w > 32767 || B > 65535 ||
+      (agg != 0 && agg != 1) || tile_h <= 0 || cells_max < 0)
     return (int)cudaErrorInvalidValue;
-  const long long n_thr = (long long)H * W << log2g;
-  if (n_thr > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((n_thr + kThreads - 1) / kThreads), D, B);
-  fused_cost_volume_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  const long long threads = (long long)tile_h * wm::kTileW << log2g;
+  const long long n_tiles = (long long)((H + tile_h - 1) / tile_h) *
+                            ((W + wm::kTileW - 1) / wm::kTileW);
+  const long long n_runs = ((long long)D + wm::kDRun - 1) / wm::kDRun;
+  if (threads > wm::kMaxTileThreads || threads % 32 != 0 ||
+      n_tiles > 0x7fffffffLL || n_runs > 65535)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = wm::footprint_smem_bytes(
+      NV, cells_max, C, tile_h * wm::kTileW, (int)threads);
+  auto kernel = log2g == 0   ? fused_cost_volume_kernel<0>
+                : log2g == 1 ? fused_cost_volume_kernel<1>
+                : log2g == 2 ? fused_cost_volume_kernel<2>
+                : log2g == 3 ? fused_cost_volume_kernel<3>
+                : log2g == 4 ? fused_cost_volume_kernel<4>
+                             : fused_cost_volume_kernel<5>;
+  const int rc = wm::allow_smem((const void*)kernel, smem);
+  if (rc != 0) return rc;
+  const dim3 grid((unsigned)n_tiles, (unsigned)n_runs, B);
+  kernel<<<grid, (unsigned)threads, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)ref, (const __nv_bfloat16*)srcs,
       (const float*)P, (const float*)Q, (const float*)s, (const float*)temp,
-      (__nv_bfloat16*)out, NV, D, H, W, h, w, C, log2g, s_per_pixel, agg);
+      (__nv_bfloat16*)out, (unsigned long long*)tile_counter, NV, D, H, W, h,
+      w, s_per_pixel, agg, tile_h, cells_max);
   return (int)cudaGetLastError();
 }
 

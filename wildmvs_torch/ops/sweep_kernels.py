@@ -31,20 +31,36 @@ wildmvs/ops/mosaic_sweep.py:
       Bound: HBM bytes. At the 1184x1600 eval's stage 3 (592x800, C=32,
       D=16, per-pixel hypotheses) it writes 121.2 MB and reads about
       102 MB (reference, source, hypotheses, planes): about 67 us at
-      3.35 TB/s. Design: one thread per reference pixel and run of
-      GWC_D_CHUNK hypotheses, the pixel's reference channels held in
-      registers, the warped channels formed in f32 registers and summed
-      into their groups, one 16-byte store per sample. No backward: it
-      serves eval only (training warps with sweep_warp).
+      3.35 TB/s. On the card it is bound by the instructions of its
+      samples. Design (csrc/footprint.cuh): a block of 8x8 reference pixels
+      x C/8 threads, one thread per (pixel, 8-channel slice), over a run of
+      FOOTPRINT_D_RUN hypotheses; it copies the tile's source footprint over the
+      run into shared memory and samples from there (exact: a sample
+      outside it reads device memory); the C/8 threads of a pixel share the
+      taps of C/8 hypotheses at a time; each thread sums its own groups and
+      the pixel's threads write its 16 output bytes with streaming stores.
+      No backward: it serves eval only (training warps with sweep_warp).
   fused_cost_volume   <- _kernel_fused / fused_cost_volume_px (:811-1117).
       All NV source views in one launch; variance (sum, sum of squares) or
       softmin (sum e*diff, sum e) statistics in f32 registers; only the
       final [B, D, H, W, C] bf16 volume is written.
-      Bound: HBM bytes: 251.7 MB out + about 5 MB in at the headline
-      (~77 us); 1.455 GB out + about 50 MB in at 1184x1600 N5 (~449 us).
-      Design: as sweep_warp, with a loop over the views inside the thread
-      and an xor-shuffle channel sum across the C/8 threads of a pixel for
-      softmin's per-pixel weight.
+      Bound: HBM bytes at the headline, 251.7 MB out + about 5 MB in
+      (~77 us); at 1184x1600 N5 the f32 operations (~0.52 ms) about equal
+      the 1.455 GB out + about 50 MB in (~0.45 ms). On the card it is bound
+      by the instructions of its samples. Design (csrc/footprint.cuh): a
+      block of 8x8 reference pixels x C/8 threads over a run of
+      FOOTPRINT_D_RUN hypotheses copies each view's source footprint over
+      the run into shared memory once (its buffer sized by NV so that the
+      block keeps 3 blocks on an SM, `footprint_plan`), then walks the
+      hypotheses with the views inside;
+      the C/8 threads of a pixel each compute one view's taps and share
+      them by shuffles, and an xor-shuffle channel sum across them gives
+      softmin's per-pixel weight; streaming stores.
+
+The footprint rule of the two staged kernels is `sweep_footprints`, their
+launch geometry `footprint_plan`; inside
+`counting_tiles()` their launches count their staged and global stages on
+the card (the model paths count nothing).
 
 None carries over the TPU's corner table, span plans, KY/KR/NT window
 tiers, lax.cond gather fallbacks, row/lane padding or depth pairing: a
@@ -82,6 +98,8 @@ For CUDA tensors it launches its kernel or raises; it never falls back.
 `<wrapper>.launches` counts kernel launches (never plain calls).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -501,9 +519,189 @@ def sweep_warp_backward(g: torch.Tensor, P: torch.Tensor, Q: torch.Tensor,
 
 sweep_warp_backward.launches = 0
 
-#: hypotheses per thread of the gwc kernel (the run over which a thread
-#: keeps its reference pixel in registers)
-GWC_D_CHUNK = 4
+# The footprint kernels (fused_cost_volume, sweep_gwc; csrc/footprint.cuh).
+#: hypotheses of a block's run and columns of its tile (kDRun and kTileW in
+#: csrc/footprint.cuh)
+FOOTPRINT_D_RUN, FOOTPRINT_TILE_W = 16, 8
+#: bytes of a block's shared-memory stage buffer for each view, at most (the
+#: views' footprints share one buffer; a footprint that does not fit in
+#: what is left is read from device memory instead)
+FUSED_VIEW_BYTES, GWC_VIEW_BYTES = 16 * 1024, 32 * 1024
+#: the dynamic shared memory of a fused block that keeps the 3 blocks of its
+#: __launch_bounds__ on an H100 SM (228 KB an SM, 1 KB of it reserved a
+#: block): at NV = 4, 16 KB a view with 3 blocks beat staging more
+#: footprints with 2 (PERF.md), and more views share the same bytes
+FUSED_BLOCK_BYTES = 228 * 1024 // 3 - 1024
+#: the most dynamic shared memory of one block on an H100
+SMEM_LIMIT = 227 * 1024
+
+
+def footprint_smem_bytes(nv: int, cells_max: int, c: int, tile_h: int) -> int:
+    """Dynamic shared memory of a footprint block (the sum of
+    wm::footprint_smem_bytes): the stage buffer of cells_max cells, the
+    tile's planes of every view, the run's hypotheses, the views'
+    footprints (32 bytes each) and the warps' hypothesis ranges."""
+    npx = tile_h * FOOTPRINT_TILE_W
+    threads = npx * (c // 8)
+    return (cells_max * c * 2 + nv * 6 * npx * 4
+            + FOOTPRINT_D_RUN * npx * 4 + nv * 32 + threads // 32 * 8)
+
+
+def footprint_plan(c: int, nv: int = 1, view_bytes: int = GWC_VIEW_BYTES,
+                   block_bytes: int | None = None) -> tuple[int, int]:
+    """(tile_h, cells_max) of a footprint kernel's launch for C channels and
+    NV views: 8 x FOOTPRINT_TILE_W reference pixels, C/8 threads a pixel,
+    halving the rows while that passes 256 threads, or while the planes of
+    NV views pass SMEM_LIMIT (down to one warp); the block's stage buffer
+    holds NV x view_bytes, or what block_bytes leaves after the rest of the
+    block, if less. A buffer smaller than one tile's footprint at one
+    hypothesis ((tile_h + 3) x (FOOTPRINT_TILE_W + 3) cells) would stage
+    nearly nothing: it is 0, and every sample reads device memory."""
+    th = 8
+    while th > 1 and th * FOOTPRINT_TILE_W * (c // 8) > 256:
+        th //= 2
+    while (footprint_smem_bytes(nv, 0, c, th) > SMEM_LIMIT
+           and th * FOOTPRINT_TILE_W * (c // 8) > 32):
+        th //= 2
+    nbytes = nv * view_bytes
+    if block_bytes is not None:
+        spare = block_bytes - footprint_smem_bytes(nv, 0, c, th)
+        nbytes = min(nbytes, max(spare, 0))
+    cells = nbytes // (2 * c)
+    return th, (cells if cells >= (th + 3) * (FOOTPRINT_TILE_W + 3) else 0)
+
+
+def fused_plan(c: int, nv: int) -> tuple[int, int]:
+    """`footprint_plan` of fused_cost_volume."""
+    return footprint_plan(c, nv, FUSED_VIEW_BYTES, FUSED_BLOCK_BYTES)
+
+
+_tile_counter = None
+
+
+@contextlib.contextmanager
+def counting_tiles(device):
+    """Within the block, each launch of a footprint kernel adds its count of
+    staged and of global stages (a stage: one tile, view and run of
+    hypotheses; global: read from device memory) to the yielded int64
+    tensor [2] on `device`. Outside it the kernels count nothing; the model
+    paths never open it."""
+    global _tile_counter
+    counter = torch.zeros(2, dtype=torch.int64, device=device)
+    prev, _tile_counter = _tile_counter, counter
+    try:
+        yield counter
+    finally:
+        _tile_counter = prev
+
+
+def _counter_ptr(dev):
+    if _tile_counter is None:
+        return None
+    _require(_tile_counter.device == dev,
+             "the tile counter lies on another device")
+    return _tile_counter.data_ptr()
+
+
+def sweep_footprints(P, Q, s, tile, src_hw, scale=UNIT_SCALE, clamp=None,
+                     d_run: int = 1, cells_max: int | None = None):
+    """The footprint rule of csrc/footprint.cuh in PyTorch: for each stage
+    (view, run of d_run hypotheses, tile of reference pixels), whether
+    the kernels stage it and the box of source cells they copy. The model
+    paths never call it; tests and chip_smoke.py hold the kernels' rule to
+    it.
+
+    The 8 corners of the box (the tile's 4 corner pixels) x [s_lo, s_hi]
+    (the stage's least and greatest hypothesis over the tile) are
+    projected in the convention; the footprint is [floor(min) - 1,
+    floor(max) + 2] in x and y, cut to the zero ring [-1, w] x [-1, h]. A
+    stage can be staged when rz > 0 and the coordinates are finite at all 8
+    corners. It is staged when, besides, its box fits in the block's stage
+    buffer of `cells_max` cells (None: no limit) after the boxes of the
+    views before it that were staged (the views share one buffer, filled
+    in view order).
+
+    Args:
+      P, Q: [B, 3, H, W] planes of one view, or [B, NV, 3, H, W].
+      s: [B, D] or [B, D, H, W] hypotheses.
+      tile: (tile_h, tile_w); src_hw: (h, w) of the source.
+    Returns:
+      staged: bool [B, (NV,) n_stages, tiles_y, tiles_x];
+      box: int64 [..., 4], (x0, y0, x1, y1), inclusive source cells.
+    """
+    if P.dim() == 4:
+        staged, box, n_cells = _view_footprints(P, Q, s, tile, src_hw, scale,
+                                                clamp, d_run)
+        if cells_max is not None:
+            staged = staged & (n_cells <= cells_max)
+        return staged, box
+    per_view = [_view_footprints(P[:, v], Q[:, v], s, tile, src_hw, scale,
+                                 clamp, d_run) for v in range(P.shape[1])]
+    staged = torch.stack([f[0] for f in per_view], 1)
+    box = torch.stack([f[1] for f in per_view], 1)
+    if cells_max is not None:
+        used = torch.zeros_like(per_view[0][2])
+        for v, (ok, _, n_cells) in enumerate(per_view):
+            fits = ok & (used + n_cells <= cells_max)
+            staged[:, v] = fits
+            used = used + torch.where(fits, n_cells, 0)
+    return staged, box
+
+
+def _view_footprints(P, Q, s, tile, src_hw, scale, clamp, d_run):
+    """`sweep_footprints` of one view, P, Q [B, 3, H, W], with no budget:
+    (stageable [B, n_stages, tiles_y, tiles_x], box [..., 4], cells of the
+    box [...])."""
+    th, tw = tile
+    h, w = src_hw
+    b, _, H, W = P.shape
+    D = s.shape[1]
+    ty, tx, n_st = -(-H // th), -(-W // tw), -(-D // d_run)
+    dev = P.device
+    # each stage's hypothesis range over each tile; the padding repeats the
+    # last hypothesis, row and column, which leaves every range as it is
+    idx_d = torch.arange(n_st * d_run, device=dev).clamp(max=D - 1)
+    if s.dim() == 4:
+        idx_y = torch.arange(ty * th, device=dev).clamp(max=H - 1)
+        idx_x = torch.arange(tx * tw, device=dev).clamp(max=W - 1)
+        sp = s[:, idx_d][:, :, idx_y][:, :, :, idx_x].reshape(
+            b, n_st, d_run, ty, th, tx, tw)
+        dims = (2, 4, 6)
+    else:
+        sp = s[:, idx_d].reshape(b, n_st, d_run, 1, 1, 1, 1)
+        dims = (2, 4, 6)
+    nan = torch.isnan(sp)
+    inf = float("inf")
+    s_lo = torch.where(nan, inf, sp).amin(dims).expand(b, n_st, ty, tx)
+    s_hi = torch.where(nan, -inf, sp).amax(dims).expand(b, n_st, ty, tx)
+    y0s = torch.arange(ty, device=dev) * th
+    x0s = torch.arange(tx, device=dev) * tw
+    y1s = (y0s + th).clamp(max=H) - 1
+    x1s = (x0s + tw).clamp(max=W) - 1
+    xs, ys, oks = [], [], []
+    for yy in (y0s, y1s):
+        for xx in (x0s, x1s):
+            Pc = P[:, :, yy][:, :, :, xx][:, :, None]      # [B, 3, 1, ty, tx]
+            Qc = Q[:, :, yy][:, :, :, xx][:, :, None]
+            for sv in (s_lo, s_hi):
+                r = Pc * sv[:, None] + Qc
+                x, y = source_coords(r[:, 0], r[:, 1], r[:, 2], scale, clamp)
+                oks.append((r[:, 2] > 0) & torch.isfinite(x)
+                           & torch.isfinite(y))
+                xs.append(torch.nan_to_num(x))
+                ys.append(torch.nan_to_num(y))
+    xs, ys = torch.stack(xs), torch.stack(ys)
+
+    def cells(lo, hi, n):
+        a = torch.floor(lo.clamp(-4.0, n + 4.0)).long() - 1
+        z = torch.floor(hi.clamp(-4.0, n + 4.0)).long() + 2
+        return a.clamp(min=-1), z.clamp(max=n)
+
+    bx0, bx1 = cells(xs.amin(0), xs.amax(0), w)
+    by0, by1 = cells(ys.amin(0), ys.amax(0), h)
+    n_cells = (bx1 - bx0 + 1).clamp(min=0) * (by1 - by0 + 1).clamp(min=0)
+    return (torch.stack(oks).all(0), torch.stack([bx0, by0, bx1, by1], -1),
+            n_cells)
 
 
 def _refuse_grad(name: str, tensors) -> None:
@@ -553,9 +751,10 @@ def sweep_gwc(src: torch.Tensor, ref: torch.Tensor, P: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.wm_sweep_gwc(src.data_ptr(), ref.data_ptr(), P.data_ptr(),
-                              Q.data_ptr(), s.data_ptr(), out.data_ptr(), b,
-                              D, H, W, h, w, c, int(s.dim() == 4),
-                              GWC_D_CHUNK, *conv, stream)
+                              Q.data_ptr(), s.data_ptr(), out.data_ptr(),
+                              _counter_ptr(dev), b, D, H, W, h, w, c,
+                              int(s.dim() == 4), *footprint_plan(c), *conv,
+                              stream)
     _build.check(rc, "wm_sweep_gwc")
     sweep_gwc.launches += 1
     return out
@@ -610,8 +809,9 @@ def fused_cost_volume(ref: torch.Tensor, srcs: torch.Tensor, P: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.wm_fused_cost_volume(
             ref.data_ptr(), srcs.data_ptr(), P.data_ptr(), Q.data_ptr(),
-            s.data_ptr(), temp.data_ptr(), out.data_ptr(), b, nv, D, H, W,
-            h, w, c, int(s.dim() == 4), AGGREGATIONS.index(agg), stream)
+            s.data_ptr(), temp.data_ptr(), out.data_ptr(), _counter_ptr(dev),
+            b, nv, D, H, W, h, w, c, int(s.dim() == 4),
+            AGGREGATIONS.index(agg), *fused_plan(c, nv), stream)
     _build.check(rc, "wm_fused_cost_volume")
     fused_cost_volume.launches += 1
     return out
