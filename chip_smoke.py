@@ -46,20 +46,26 @@ JAX or of the JAX package. Phases, each of which stops the run if it fails:
 
 Phase 1 also holds sweep_warp_backward to its plain version ([D], [D,H,W]
 and the behind-camera rig) and times it against torch's
-grid_sampler_2d_backward, and holds the Vis-convention kernels (sweep_gwc,
-sweep_warp and sweep_warp_backward with the coordinate scale and clamp) to
-their plain versions at the Vis eval's stage-1, stage-2 and stage-3
-shapes, on a source under 21 px and on a rig partly behind the source
-camera, and times them. The two footprint kernels (fused_cost_volume,
-sweep_gwc: csrc/footprint.cuh) are also held to their plain versions on a
-ragged shape (RAGGED: a reference grid no multiple of their tile, D no
-multiple of their run) and on a grazing rig whose launch mixes stages
-staged in shared memory with stages read from device memory; the fused
-kernel also at 6, 8 and 16 source views (FUSED_VIEWS), where its stage
-buffers shrink or vanish to keep the block's shared memory in bounds; at
-each timed shape the kernel's own count of staged stages is printed
-beside the share that the plain rule (sweep_footprints) predicts. Phase 3
-times the fused kernel at the eval shapes by CUDA-graph replay too.
+grid_sampler_2d_backward, beside its own count of its 16-byte atomics
+into device memory (held to a plain model of its flushes) and the first
+design's (a plain model, backward_atomics); and holds the Vis-convention
+kernels (sweep_gwc, sweep_warp and sweep_warp_backward with the
+coordinate scale and clamp) to their plain versions at the Vis eval's
+stage shapes (gwc) and the Vis training's (warp and backward), on a
+source under 21 px and on a rig partly behind the source camera, and
+times them there. Every kernel works on 8x8 tiles over runs of
+hypotheses (csrc/footprint.cuh), so each is also held to its plain
+version on a ragged shape (RAGGED: a reference grid no multiple of the
+tile, D no multiple of the run) and on a grazing rig, whose launch of a
+forward kernel mixes stages staged in shared memory with stages that use
+device memory; the warp and its backward also at every other channel
+count they take (CHANNELS, a kernel body each) in both conventions, and
+sweep_gwc at those it takes; the fused kernel also at 6, 8 and 16 source
+views (FUSED_VIEWS), where its stage buffers shrink or vanish to keep
+the block's shared memory in bounds; at each timed shape a forward
+kernel's own count of staged stages is printed beside the share that the
+plain rule (sweep_footprints) predicts. Phase 3 times the fused kernel at
+the eval shapes by CUDA-graph replay too.
 
 Prints the card, the kernels' register/spill summary and one line per
 phase, then a `kernels` JSON line and, last, the device JSON line.
@@ -119,6 +125,10 @@ RAGGED = (100, 150, 37)
 # feature shape: 6 shares the block's shared memory among smaller stage
 # buffers, 8 and 16 read every sample from device memory
 FUSED_VIEWS = (6, 8, 16)
+# channel counts of phase 1's channel cases, besides the C = 32 of the
+# others: each is a kernel body of its own (sweep_warp and
+# sweep_warp_backward take 8-256 in both conventions, sweep_gwc 8-64)
+CHANNELS = (8, 16, 64, 128, 256)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -258,22 +268,33 @@ def compare(name, got, want, extra=""):
 
 def tile_shares(launch, P, Q, s, src_hw, plan, scale=sk.UNIT_SCALE,
                 clamp=None):
-    """The staged share of one launch of a footprint kernel as the kernel
-    counts it on the card (staged / all stages of a tile, view and run),
-    beside the plain rule's (sk.sweep_footprints) for the same planes,
-    hypotheses, run and plan (tile_h, cells_max: sk.fused_plan or
+    """The staged share of one launch of a forward footprint kernel as the
+    kernel counts it on the card (staged / all stages of a tile, view and
+    run), beside the plain rule's (sk.sweep_footprints) for the same
+    planes, hypotheses and plan (tile_h, cells_max: sk.fused_plan or
     sk.footprint_plan). Returns (kernel share, plain share, (staged,
     global))."""
     with sk.counting_tiles(P.device) as counter:
         launch()
         torch.cuda.synchronize()
-        staged, glob = counter.tolist()
+        staged, glob, _ = counter.tolist()
     tile_h, cells_max = plan
     plain, _ = sk.sweep_footprints(P, Q, s, (tile_h, sk.FOOTPRINT_TILE_W),
                                    src_hw, scale, clamp, sk.FOOTPRINT_D_RUN,
                                    cells_max)
     return (staged / max(staged + glob, 1), plain.float().mean().item(),
             (staged, glob))
+
+
+def warp_share(src, P, Q, s, scale=sk.UNIT_SCALE, clamp=None):
+    """tile_shares of one sweep_warp launch under the warp's plan."""
+    return tile_shares(lambda: sk.sweep_warp(src, P, Q, s, scale, clamp),
+                       P, Q, s, tuple(src.shape[1:3]),
+                       sk.footprint_plan(src.shape[-1]), scale, clamp)
+
+
+def share_text(share) -> str:
+    return f"staged share {share[0]:.4f} (plain rule {share[1]:.4f})"
 
 
 def compare_backward(g, P, Q, s, src_hw, case, scale=sk.UNIT_SCALE,
@@ -302,38 +323,81 @@ def compare_backward(g, P, Q, s, src_hw, case, scale=sk.UNIT_SCALE,
     return err32, err16
 
 
-def backward_atomics(P, Q, s, src_hw, d_chunk, groups):
-    """16-byte atomics of one sweep_warp_backward launch on these inputs:
-    (this kernel's count, the count of one thread per sample). A thread
-    flushes its corners when its sample changes source cell within its
-    run of d_chunk hypotheses; each flush adds two 16-byte atomics per
-    corner inside the image, for each of the C/8 channel groups."""
+#: hypotheses of a thread's run in the first sweep_warp_backward design
+#: (one thread per pixel and 8 channels, every flush into device memory)
+FIRST_BACKWARD_RUN = 16
+
+
+def thread_flushes(x0, y0, live, src_hw, d_run, shift):
+    """[D, H, W] long: the corners inside the image that a thread walking
+    its pixel's runs of d_run hypotheses adds out of its registers at each
+    sample (x0, y0, live: [D, H, W] top-left corners and liveness). A
+    thread sums its sample's four corners while the sample stays in one
+    source cell; when a live sample lands in another cell it adds the old
+    cell's corners (with `shift`, all but the two that a move of one cell
+    shares with the new one, which it keeps), and after its run's last
+    live sample it adds that cell's four."""
     h, w = src_hw
-    s = s[:, :, None, None] if s.dim() == 2 else s
-    r = P[:, :, None] * s[:, None] + Q[:, :, None]          # [1, 3, D, ..]
-    pos = r[0, 2] > 0
-    z = torch.where(pos, r[0, 2], torch.ones_like(r[0, 2]))
-    x0 = torch.floor(r[0, 0] / z)
-    y0 = torch.floor(r[0, 1] / z)
-    live = pos & (x0 >= -1) & (x0 <= w - 1) & (y0 >= -1) & (y0 <= h - 1)
-    inside = sum(((x0 + dx >= 0) & (x0 + dx < w) & (y0 + dy >= 0)
-                  & (y0 + dy < h)).long()
-                 for dx in (0, 1) for dy in (0, 1))
-    cell = torch.where(live, (y0 + 1) * (w + 2) + x0 + 1,
-                       torch.full_like(x0, -1.0))
-    runs = 0
-    for d0 in range(0, cell.shape[0], d_chunk):
-        c = cell[d0:d0 + d_chunk]
-        # the cell of the last live sample before each hypothesis
-        idx = torch.where(c >= 0, torch.arange(
-            c.shape[0], device=c.device)[:, None, None], -1)
-        last = torch.cummax(idx, 0).values
-        prev = torch.where(last[:-1] >= 0, torch.gather(
-            c, 0, last[:-1].clamp_min(0)), torch.full_like(c[1:], -1.0))
-        starts = torch.cat([c[:1] >= 0, (c[1:] >= 0) & (c[1:] != prev)])
-        runs += int((starts * inside[d0:d0 + d_chunk]).sum())
-    naive = int((live * inside).sum())
-    return 2 * groups * runs, 2 * groups * naive
+    out = torch.zeros_like(x0)
+    for d0 in range(0, x0.shape[0], d_run):
+        xs, ys, lv = x0[d0:d0 + d_run], y0[d0:d0 + d_run], live[d0:d0 + d_run]
+        idx = torch.where(lv, torch.arange(
+            xs.shape[0], device=xs.device)[:, None, None], -1)
+        last = torch.cummax(idx, 0).values     # last live sample so far
+        prev = last[:-1].clamp_min(0)
+        xp, yp = torch.gather(xs, 0, prev), torch.gather(ys, 0, prev)
+        moved = lv[1:] & (last[:-1] >= 0) & ((xs[1:] != xp) | (ys[1:] != yp))
+        mx, my = xs[1:] - xp, ys[1:] - yp
+        one = (mx.abs() + my.abs() == 1) if shift else torch.zeros_like(moved)
+        end = idx == last[-1:]                 # the run's last live sample
+        for k in range(4):
+            kx, ky = k % 2, k // 2
+            kept = one & (kx - mx >= 0) & (kx - mx <= 1) & (ky - my >= 0) \
+                & (ky - my <= 1)
+            xi, yi = xp + kx, yp + ky
+            inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+            out[d0 + 1:d0 + d_run] += (moved & ~kept & inside).long()
+            xi, yi = xs + kx, ys + ky
+            inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+            out[d0:d0 + d_run] += (end & lv & inside).long()
+    return out
+
+
+def backward_atomics(P, Q, s, src_hw, C, scale=sk.UNIT_SCALE, clamp=None):
+    """A plain model of the 16-byte atomics into device memory of one
+    sweep_warp_backward launch on these inputs (B = 1), two a corner and
+    8-channel slice (`thread_flushes`): (this design's, which keeps the
+    corners that a move of one cell shares over runs of
+    sk.FOOTPRINT_D_RUN; the first design's, which added all four at every
+    move over runs of FIRST_BACKWARD_RUN)."""
+    h, w = src_hw
+    x, y = sk.source_coords(*sk._project(P, Q, s), scale, clamp)
+    x0, y0 = torch.floor(x[0]).long(), torch.floor(y[0]).long()  # [D, H, W]
+    live = (x0 >= -1) & (x0 <= w - 1) & (y0 >= -1) & (y0 <= h - 1)
+    return tuple(2 * (C // 8) * int(thread_flushes(
+        x0, y0, live, src_hw, run, shift).sum()) for run, shift in (
+            (sk.FOOTPRINT_D_RUN, True), (FIRST_BACKWARD_RUN, False)))
+
+
+def counted_atomics(case, g, P, Q, s, src_hw, scale=sk.UNIT_SCALE,
+                    clamp=None) -> int:
+    """The 16-byte atomics into device memory of one sweep_warp_backward
+    launch as the kernel counts them on the card (sk.counting_tiles), held
+    within 1 % of the plain model of its flushes (backward_atomics: a
+    coordinate within rounding of a cell's edge may floor the other way)
+    and printed beside the first design's plain count."""
+    with sk.counting_tiles(P.device) as counter:
+        sk.sweep_warp_backward(g, P, Q, s, src_hw, scale=scale, clamp=clamp)
+        torch.cuda.synchronize()
+        n = int(counter[2])
+    model, first = backward_atomics(P, Q, s, src_hw, g.shape[-1], scale,
+                                    clamp)
+    print(f"phase1 sweep_warp_backward {case}: 16-byte f32 atomics into "
+          f"device memory {n} (the kernel's count; plain model {model}); "
+          f"the first design's {first} (plain model)", flush=True)
+    check(abs(n - model) <= 0.01 * model, f"sweep_warp_backward {case}: "
+          f"the kernel counted {n} atomics, its plain model {model}")
+    return n
 
 
 def kernel_inputs(cfg, dev, C=32):
@@ -383,15 +447,15 @@ def phase1_kernels(dev):
     src = srcs[:, 0].contiguous()
     results = {}
 
-    # --- sweep_warp --------------------------------------------------------
+    # --- sweep_warp and sweep_warp_backward ---------------------------------
     warp_args = (src, P[:, 0].contiguous(), Q[:, 0].contiguous(), s)
+    g = torch.randn((1, NUM_DEPTH, fh, fw, C), device=dev,
+                    generator=torch.Generator(dev).manual_seed(1)).to(
+        torch.bfloat16)
     out = sk.sweep_warp(*warp_args)
     check(out.shape == (1, NUM_DEPTH, fh, fw, C), f"warp shape {out.shape}")
-    err = compare("sweep_warp", out, sk.sweep_warp_plain(*warp_args))
     behind = (src, P_b, Q_b, s)
     got_b = sk.sweep_warp(*behind)
-    compare("sweep_warp behind-camera rig", got_b,
-            sk.sweep_warp_plain(*behind))
     # points well behind the source camera (z < -1 mm) read exact zeros
     rz = P_b[:, 2, None] * s[:, :, None, None] + Q_b[:, 2, None]
     behind_share = (rz < -1.0).float().mean().item()
@@ -399,23 +463,39 @@ def phase1_kernels(dev):
     check(0.0 < behind_share < 1.0, f"behind share {behind_share}")
     check(bool((got_b[rz < -1.0] == 0).all()),
           "behind-camera samples are not zero")
-    a = (src, warp_args[1], warp_args[2], s_dhw)
-    compare("sweep_warp per-pixel hypotheses", sk.sweep_warp(*a),
-            sk.sweep_warp_plain(*a))
+    rh, rw, rd = RAGGED
+    proj_g = feature_projections(K, *grazing(R, t), dev)
+    P_g, Q_g = sk.mvsnet_planes(proj_g[:, 1], proj_g[:, 0], (fh, fw))
+    sweeps = {"[D]": warp_args[1:], "[D,H,W]": (*warp_args[1:3], s_dhw),
+              "behind-camera rig": behind[1:],
+              f"ragged {rh}x{rw} D{rd}": (
+                  warp_args[1][..., :rh, :rw].contiguous(),
+                  warp_args[2][..., :rh, :rw].contiguous(),
+                  s[:, :rd].contiguous()),
+              "grazing rig": (P_g, Q_g, s)}
+    errs = {}
+    for case, (P_, Q_, s_) in sweeps.items():
+        g_ = g[:, :s_.shape[1], :P_.shape[2], :P_.shape[3]].contiguous()
+        extra = ""
+        if case == "grazing rig":
+            share = warp_share(src, P_, Q_, s_)
+            n_st, n_gl = share[2]
+            check(n_st > 0 and n_gl > 0, f"sweep_warp: the grazing rig's "
+                  f"launch did not mix staged and global stages: {n_st} "
+                  f"and {n_gl}")
+            extra = f"; staged {n_st} global {n_gl}: {share_text(share)}"
+        errs[case] = (
+            compare(f"sweep_warp {case}", sk.sweep_warp(src, P_, Q_, s_),
+                    sk.sweep_warp_plain(src, P_, Q_, s_), extra),
+            compare_backward(g_, P_, Q_, s_, (fh, fw), case)[0])
 
     ms, events_ms = timed(lambda: sk.sweep_warp(*warp_args))
     plain_ms = cuda_ms(lambda: sk.sweep_warp_plain(*warp_args), reps=3,
                        warmup=1)
+    share = warp_share(*warp_args)
     # yardstick: torch's grid_sample over the same sampling grid
-    r = (warp_args[1][:, :, None] * s[:, None, :, None, None]
-         + warp_args[2][:, :, None])
-    pos = r[:, 2] > 0
-    z = torch.where(pos, r[:, 2], torch.ones_like(r[:, 2]))
-    gx = torch.where(pos, r[:, 0] / z, -10.0) / ((fw - 1) / 2.0) - 1.0
-    gy = torch.where(pos, r[:, 1] / z, -10.0) / ((fh - 1) / 2.0) - 1.0
-    grid = torch.stack([gx, gy], -1).reshape(1, NUM_DEPTH * fh, fw, 2)
+    grid = vis_grid(*warp_args[1:], sk.UNIT_SCALE, None, fh, fw)
     src_nchw = src.permute(0, 3, 1, 2)
-    grid = grid.to(torch.bfloat16).contiguous()
     library_ms = cuda_ms(lambda: F.grid_sample(
         src_nchw, grid, mode="bilinear", padding_mode="zeros",
         align_corners=True), reps=20, warmup=2)
@@ -424,25 +504,17 @@ def phase1_kernels(dev):
                        n_live * C * 8 + NUM_DEPTH * fh * fw * 20)
     results["sweep_warp"] = dict(
         name="sweep_warp", route="cuda",
-        source="wildmvs_torch/csrc/sweep.cu",
+        source="wildmvs_torch/csrc/warp.cu",
         replaces="wildmvs/ops/mosaic_sweep.py:143",
-        max_abs_err=err, ms=ms, events_ms=events_ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+        max_abs_err=errs["[D]"][0], ms=ms, events_ms=events_ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=library_ms, staged_share=share[0])
     print(f"phase1 sweep_warp: ms {ms:.4f} (events {events_ms:.4f}) "
           f"plain_ms {plain_ms:.3f} "
           f"library_ms {library_ms:.4f} (bf16 grid_sample) "
-          f"bound_ms {b_ms:.4f} ({b_by}) live samples {n_live}",
-          flush=True)
+          f"bound_ms {b_ms:.4f} ({b_by}) live samples {n_live}; "
+          f"{share_text(share)}", flush=True)
 
-    # --- sweep_warp_backward -----------------------------------------------
-    g = torch.randn((1, NUM_DEPTH, fh, fw, C), device=dev,
-                    generator=torch.Generator(dev).manual_seed(1)).to(
-        torch.bfloat16)
-    bwd_cases = {"[D]": warp_args[1:], "[D,H,W]": a[1:],
-                 "behind-camera rig": behind[1:]}
-    for case, (P_, Q_, s_) in bwd_cases.items():
-        compare_backward(g, P_, Q_, s_, (fh, fw), case)
-    err32, _ = compare_backward(g, *warp_args[1:], (fh, fw), "[D] (timed)")
     bwd = (g, *warp_args[1:], (fh, fw))
     ms, events_ms = timed(lambda: sk.sweep_warp_backward(*bwd))
     plain_ms = cuda_ms(lambda: sk.sweep_warp_backward_plain(*bwd), reps=3,
@@ -453,8 +525,7 @@ def phase1_kernels(dev):
     library_ms = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
         g_nchw, src_nchw, grid, 0, 0, True, [True, False]), reps=20,
         warmup=2)
-    runs, naive = backward_atomics(*warp_args[1:], (fh, fw),
-                                   sk.BACKWARD_D_CHUNK, C // 8)
+    atomics = counted_atomics("[D]", *bwd)
     df_bytes = fh * fw * C * 4
     b_ms, b_by = bound(nbytes(g, *warp_args[1:]) + df_bytes,
                        n_live * C * 8 + NUM_DEPTH * fh * fw * 20)
@@ -462,14 +533,13 @@ def phase1_kernels(dev):
         name="sweep_warp_backward", route="cuda",
         source="wildmvs_torch/csrc/sweep.cu",
         replaces="wildmvs/ops/mosaic_sweep.py:1930",
-        max_abs_err=err32, ms=ms, events_ms=events_ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+        max_abs_err=errs["[D]"][1], ms=ms, events_ms=events_ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=library_ms, device_atomics=atomics)
     print(f"phase1 sweep_warp_backward: ms {ms:.4f} (events "
           f"{events_ms:.4f}) plain_ms {plain_ms:.3f}"
           f" library_ms {library_ms:.4f} (bf16 grid_sampler_2d_backward) "
-          f"bound_ms {b_ms:.4f} ({b_by}); 16-byte f32 atomics {runs} (one "
-          f"thread per sample would issue {naive}), "
-          f"{runs * 16 / ms / 1e6:.1f} GB/s of atomics", flush=True)
+          f"bound_ms {b_ms:.4f} ({b_by})", flush=True)
 
     # --- fused_cost_volume -------------------------------------------------
     fused_args = {}
@@ -483,15 +553,12 @@ def phase1_kernels(dev):
            torch.stack([Q_b, Q[:, 1]], 1), s, temp, "variance")
     compare("fused_cost_volume behind-camera rig", sk.fused_cost_volume(*a_b),
             sk.fused_cost_volume_plain(*a_b))
-    rh, rw, rd = RAGGED
     for agg in ("variance", "softmin"):
         a_r = (ref[:, :rh, :rw].contiguous(), srcs,
                P[..., :rh, :rw].contiguous(), Q[..., :rh, :rw].contiguous(),
                s[:, :rd].contiguous(), temp, agg)
         compare(f"fused_cost_volume ragged {rh}x{rw} D{rd} {agg}",
                 sk.fused_cost_volume(*a_r), sk.fused_cost_volume_plain(*a_r))
-    proj_g = feature_projections(K, *grazing(R, t), dev)
-    P_g, Q_g = sk.mvsnet_planes(proj_g[:, 1], proj_g[:, 0], (fh, fw))
     a_g = (ref, srcs, torch.stack([P_g, P[:, 1]], 1),
            torch.stack([Q_g, Q[:, 1]], 1), s, temp, "variance")
     share, plain_share, (n_st, n_gl) = tile_shares(
@@ -522,7 +589,7 @@ def phase1_kernels(dev):
         replaces="wildmvs/ops/mosaic_sweep.py:811",
         max_abs_err=err, ms=ms, events_ms=events_ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None, staged_share=share,
-        plain_staged_share=plain_share, softmin_ms=ms_softmin)
+        softmin_ms=ms_softmin)
     print(f"phase1 fused_cost_volume: variance ms {ms:.4f} (events "
           f"{events_ms:.4f}) softmin ms "
           f"{ms_softmin:.4f} plain_ms {plain_ms:.3f} bound_ms {b_ms:.4f} "
@@ -547,8 +614,7 @@ def phase1_kernels(dev):
         (b_ms, b_by), _ = fused_bound(*a_v[:5], out)
         views[str(nv)] = dict(max_abs_err=err, ms=ms, bound_ms=b_ms,
                               bound_by=b_by, cells_max=plan[1],
-                              staged_share=share,
-                              plain_staged_share=plain_share)
+                              staged_share=share)
         print(f"phase1 fused_cost_volume NV={nv}: ms {ms:.4f} bound_ms "
               f"{b_ms:.4f} ({b_by}); one stage buffer of {plan[1]} cells "
               f"for the {nv} views, staged share {share:.4f} (plain rule "
@@ -556,6 +622,43 @@ def phase1_kernels(dev):
         del ref_v, srcs_v, P_v, Q_v, a_v, out
     results["fused_cost_volume"]["views"] = views
     return results
+
+
+def phase1_channels(dev):
+    """sweep_warp and sweep_warp_backward at each channel count of CHANNELS
+    on the ragged crop (RAGGED) of the headline rig ([D], MVSNet
+    convention) and on that crop of Vis training stage 2 (a slab of
+    per-pixel hypotheses, Vis convention), and sweep_gwc on the Vis crop at
+    the channel counts it takes, each held to its plain version."""
+    rh, rw, rd = RAGGED
+    tr = dict(n=3, h=HEADLINE["h"], w=HEADLINE["w"], f=HEADLINE["f"])
+    for c in CHANNELS:
+        _, srcs, P, Q, s, *_ = kernel_inputs(HEADLINE, dev, C=c)
+        src, ref, P_v, Q_v, s_v, scale, clamp = vis_kernel_inputs(
+            dev, tr, 2, rd, True, C=c)
+        ref = ref[:, :rh, :rw].contiguous()
+        crop = (lambda t: t[..., :rh, :rw].contiguous())
+        sweeps = {"MVSNet": (srcs[:, 0].contiguous(), crop(P[:, 0]),
+                             crop(Q[:, 0]), s[:, :rd].contiguous(),
+                             sk.UNIT_SCALE, None),
+                  "Vis": (src, crop(P_v), crop(Q_v), crop(s_v), scale,
+                          clamp)}
+        for conv, (src_, P_, Q_, s_, scale_, clamp_) in sweeps.items():
+            case = f"{conv} ragged {rh}x{rw} D{rd} C{c}"
+            compare(f"sweep_warp {case}",
+                    sk.sweep_warp(src_, P_, Q_, s_, scale_, clamp_),
+                    sk.sweep_warp_plain(src_, P_, Q_, s_, scale_, clamp_))
+            g = torch.randn((1, rd, rh, rw, c), device=dev,
+                            generator=torch.Generator(dev).manual_seed(4)).to(
+                torch.bfloat16)
+            compare_backward(g, P_, Q_, s_, tuple(src_.shape[1:3]), case,
+                             scale_, clamp_)
+            if conv == "Vis" and c <= 64:
+                vis = (P_, Q_, s_, scale_, clamp_)
+                compare(f"sweep_gwc {case}", sk.sweep_gwc(src_, ref, *vis),
+                        sk.sweep_gwc_plain(src_, ref, *vis))
+        del srcs, P, Q, s, src, ref, sweeps
+    torch.cuda.empty_cache()
 
 
 def sharpen(pred: Predictor) -> Predictor:
@@ -718,8 +821,7 @@ def phase3_eval(pred, dev):
           f"{peak / 2**30:.3f} GiB", flush=True)
     return dict(eval_ms=ms, eval_peak_gib=peak / 2 ** 30,
                 eval_kernel_ms=kernel_ms, eval_kernel_bound_ms=b_ms,
-                eval_kernel_staged_share=share,
-                eval_kernel_plain_staged_share=plain_share)
+                eval_kernel_staged_share=share)
 
 
 def phase4_depthmaps(pred):
@@ -958,9 +1060,12 @@ def phase1_vis_kernels(dev, results):
     296x400, D=32) and stage-3 ([D,H,W], 592x800, D=16) shapes, on a
     ragged crop of stage 1 (RAGGED) and on the grazing rig (staged and
     global stages in one launch); sweep_warp and sweep_warp_backward at the
-    512x640 training's stage-3 shape (256x320, D=8, [D,H,W]); a source
-    under 21 px (stage 1 of a 64x80 image, 8x10) and a rig partly behind
-    the source camera for all three. Adds the timings to `results`."""
+    512x640 training's stage shapes (64x80 D=32 [D], 128x160 D=16 [D,H,W],
+    256x320 D=8 [D,H,W]), on the same ragged crop and on the grazing rig
+    at training stage 2; a source under 21 px (stage 1 of a 64x80 image,
+    8x10) and a rig partly behind the source camera for all three. Adds
+    the timings (gwc at the eval stages, the warp and its backward at the
+    training stages) to `results`."""
     ev = dict(n=5, h=EVAL["h"], w=EVAL["w"], f=EVAL["f"])
     tr = dict(n=3, h=HEADLINE["h"], w=HEADLINE["w"], f=HEADLINE["f"])
     small = dict(n=5, h=64, w=80, f=EVAL["f"] * 80 / EVAL["w"])
@@ -969,6 +1074,8 @@ def phase1_vis_kernels(dev, results):
     cases = {"eval stage 1 [D]": (ev, 1, 64, False, False, 1),
              "eval stage 2 [D,H,W]": (ev, 2, 32, True, False, 1),
              "eval stage 3 [D,H,W]": (ev, 3, 16, True, False, 1),
+             "train stage 1 [D]": (tr, 1, 32, False, False, 1),
+             "train stage 2 [D,H,W]": (tr, 2, 16, True, False, 1),
              "train stage 3 [D,H,W]": (tr, 3, 8, True, False, 1),
              "source 8x10 [D]": (small, 1, 32, False, False, 4),
              "behind-camera rig": (tr, 3, 8, False, True, 1)}
@@ -1007,6 +1114,13 @@ def phase1_vis_kernels(dev, results):
     compare(f"sweep_gwc ragged {rh}x{rw} D{rd}",
             sk.sweep_gwc(src, ref[:, :rh, :rw].contiguous(), *vis),
             sk.sweep_gwc_plain(src, ref[:, :rh, :rw].contiguous(), *vis))
+    compare(f"sweep_warp Vis ragged {rh}x{rw} D{rd}", sk.sweep_warp(src, *vis),
+            sk.sweep_warp_plain(src, *vis))
+    g = torch.randn((1, rd, rh, rw, src.shape[-1]), device=dev,
+                    generator=torch.Generator(dev).manual_seed(2)).to(
+        torch.bfloat16)
+    compare_backward(g, *vis[:3], tuple(src.shape[1:3]),
+                     f"Vis ragged {rh}x{rw} D{rd}", scale, clamp)
     src, ref, P, Q, s, scale, clamp = vis_kernel_inputs(
         dev, ev, 1, 64, False, graze=True)
     vis = (P, Q, s, scale, clamp)
@@ -1019,6 +1133,22 @@ def phase1_vis_kernels(dev, results):
             sk.sweep_gwc_plain(src, ref, *vis),
             f" staged {n_st} global {n_gl}: share {share:.4f} (plain rule "
             f"{plain_share:.4f})")
+    # sweep_warp and its backward on the grazing rig at training stage 2
+    src, ref, P, Q, s, scale, clamp = vis_kernel_inputs(
+        dev, tr, 2, 16, True, graze=True)
+    vis = (P, Q, s, scale, clamp)
+    g = torch.randn((1, 16) + tuple(P.shape[2:]) + (src.shape[-1],),
+                    device=dev, generator=torch.Generator(dev).manual_seed(
+                        2)).to(torch.bfloat16)
+    share = warp_share(src, *vis)
+    n_st, n_gl = share[2]
+    check(n_st > 0 and n_gl > 0, f"sweep_warp: the Vis grazing rig's launch "
+          f"did not mix staged and global stages: {n_st} and {n_gl}")
+    compare("sweep_warp Vis grazing rig", sk.sweep_warp(src, *vis),
+            sk.sweep_warp_plain(src, *vis),
+            f"; staged {n_st} global {n_gl}: {share_text(share)}")
+    compare_backward(g, P, Q, s, tuple(src.shape[1:3]), "Vis grazing rig",
+                     scale, clamp)
 
     # --- sweep_gwc timings: the three eval stages ---------------------------
     times = {}
@@ -1045,8 +1175,7 @@ def phase1_vis_kernels(dev, results):
             sk.footprint_plan(C), scale, clamp)
         times[case] = dict(max_abs_err=err, ms=ms, events_ms=events_ms,
                            plain_ms=plain_ms, library_ms=library_ms,
-                           bound_ms=b_ms, bound_by=b_by, staged_share=share,
-                           plain_staged_share=plain_share)
+                           bound_ms=b_ms, bound_by=b_by, staged_share=share)
         print(f"phase1 sweep_gwc {case}: ms {ms:.4f} (events "
               f"{events_ms:.4f}) plain_ms "
               f"{plain_ms:.3f} library_ms {library_ms:.4f} (bf16 grid_sample"
@@ -1054,58 +1183,64 @@ def phase1_vis_kernels(dev, results):
               f"samples {n_live}; staged share {share:.4f} (plain rule "
               f"{plain_share:.4f})", flush=True)
     results["sweep_gwc"] = dict(
-        name="sweep_gwc", route="cuda", source="wildmvs_torch/csrc/gwc.cu",
+        name="sweep_gwc", route="cuda", source="wildmvs_torch/csrc/warp.cu",
         replaces="wildmvs/ops/mosaic_sweep.py:627",
         **times["eval stage 3 [D,H,W]"],
         stage1=times["eval stage 1 [D]"], stage2=times["eval stage 2 [D,H,W]"])
 
-    # --- Vis sweep_warp and its backward at the training's stage 3 ---------
-    src, ref, P, Q, s, scale, clamp = inputs["train stage 3 [D,H,W]"]
-    vis = (P, Q, s, scale, clamp)
-    _, h, w, C = src.shape
-    out = sk.sweep_warp(src, *vis)
-    ms, events_ms = timed(lambda: sk.sweep_warp(src, *vis))
-    plain_ms = cuda_ms(lambda: sk.sweep_warp_plain(src, *vis), reps=3,
-                       warmup=1)
-    grid = vis_grid(P, Q, s, scale, clamp, h, w)
-    src_nchw = src.permute(0, 3, 1, 2)
-    library_ms = cuda_ms(lambda: F.grid_sample(
-        src_nchw, grid, mode="bilinear", padding_mode="zeros",
-        align_corners=True), reps=20, warmup=2)
-    n_live = live_samples(P, Q, s, h, w, scale, clamp)
-    D = s.shape[1]
-    b_ms, b_by = bound(nbytes(src, P, Q, s, out),
-                       n_live * C * 8 + D * h * w * 20)
-    results["sweep_warp"]["vis"] = dict(
-        shape="256x320 C32 D8 [D,H,W]", ms=ms, events_ms=events_ms,
-        plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-        bound_by=b_by)
-    print(f"phase1 sweep_warp Vis train stage 3: ms {ms:.4f} (events "
-          f"{events_ms:.4f}) plain_ms "
-          f"{plain_ms:.3f} library_ms {library_ms:.4f} (bf16 grid_sample) "
-          f"bound_ms {b_ms:.4f} ({b_by})", flush=True)
-    g = torch.randn(out.shape, device=dev, generator=torch.Generator(
-        dev).manual_seed(3)).to(torch.bfloat16)
-    bwd = (g, P, Q, s, (h, w))
-    ms, events_ms = timed(lambda: sk.sweep_warp_backward(
-        *bwd, scale=scale, clamp=clamp))
-    plain_ms = cuda_ms(lambda: sk.sweep_warp_backward_plain(
-        *bwd, scale, clamp), reps=3, warmup=1)
-    g_nchw = g.reshape(1, D * h, w, C).permute(0, 3, 1, 2)
-    library_ms = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
-        g_nchw, src_nchw, grid, 0, 0, True, [True, False]), reps=20,
-        warmup=2)
-    b_ms, b_by = bound(nbytes(g, P, Q, s) + h * w * C * 4,
-                       n_live * C * 8 + D * h * w * 20)
-    results["sweep_warp_backward"]["vis"] = dict(
-        shape="256x320 C32 D8 [D,H,W]", ms=ms, events_ms=events_ms,
-        plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-        bound_by=b_by)
-    print(f"phase1 sweep_warp_backward Vis train stage 3: ms {ms:.4f} "
-          f"(events {events_ms:.4f}) "
-          f"plain_ms {plain_ms:.3f} library_ms {library_ms:.4f} (bf16 "
-          f"grid_sampler_2d_backward) bound_ms {b_ms:.4f} ({b_by})",
-          flush=True)
+    # --- Vis sweep_warp and its backward: the three training stages -------
+    for stage, case in enumerate(("train stage 1 [D]", "train stage 2 [D,H,W]",
+                                  "train stage 3 [D,H,W]"), 1):
+        src, ref, P, Q, s, scale, clamp = inputs[case]
+        vis = (P, Q, s, scale, clamp)
+        _, h, w, C = src.shape
+        D, H, W = s.shape[1], *P.shape[2:]
+        shape = f"{H}x{W} C{C} D{D} {case.split()[-1]}"
+        out = sk.sweep_warp(src, *vis)
+        g = torch.randn(out.shape, device=dev, generator=torch.Generator(
+            dev).manual_seed(3)).to(torch.bfloat16)
+        share = warp_share(src, *vis)
+        grid = vis_grid(P, Q, s, scale, clamp, h, w)
+        src_nchw = src.permute(0, 3, 1, 2)
+        n_live = live_samples(P, Q, s, h, w, scale, clamp)
+        ops = n_live * C * 8 + D * H * W * 20
+        ms, events_ms = timed(lambda: sk.sweep_warp(src, *vis))
+        plain_ms = cuda_ms(lambda: sk.sweep_warp_plain(src, *vis), reps=3,
+                           warmup=1)
+        library_ms = cuda_ms(lambda: F.grid_sample(
+            src_nchw, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True), reps=20, warmup=2)
+        b_ms, b_by = bound(nbytes(src, P, Q, s, out), ops)
+        results["sweep_warp"].setdefault("vis", {})[f"stage{stage}"] = dict(
+            shape=shape, ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+            staged_share=share[0])
+        print(f"phase1 sweep_warp Vis train stage {stage} {shape}: ms "
+              f"{ms:.4f} (events {events_ms:.4f}) plain_ms {plain_ms:.3f} "
+              f"library_ms {library_ms:.4f} (bf16 grid_sample) bound_ms "
+              f"{b_ms:.4f} ({b_by}); {share_text(share)}", flush=True)
+        bwd = (g, P, Q, s, (h, w))
+        ms, events_ms = timed(lambda: sk.sweep_warp_backward(
+            *bwd, scale=scale, clamp=clamp))
+        plain_ms = cuda_ms(lambda: sk.sweep_warp_backward_plain(
+            *bwd, scale, clamp), reps=3, warmup=1)
+        g_nchw = g.reshape(1, D * H, W, C).permute(0, 3, 1, 2)
+        library_ms = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+            g_nchw, src_nchw, grid, 0, 0, True, [True, False]), reps=20,
+            warmup=2)
+        b_ms, b_by = bound(nbytes(g, P, Q, s) + h * w * C * 4, ops)
+        atomics = counted_atomics(f"Vis train stage {stage}", *bwd, scale,
+                                  clamp)
+        results["sweep_warp_backward"].setdefault("vis", {})[
+            f"stage{stage}"] = dict(
+            shape=shape, ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+            device_atomics=atomics)
+        print(f"phase1 sweep_warp_backward Vis train stage {stage} {shape}: "
+              f"ms {ms:.4f} (events {events_ms:.4f}) plain_ms "
+              f"{plain_ms:.3f} library_ms {library_ms:.4f} (bf16 "
+              f"grid_sampler_2d_backward) bound_ms {b_ms:.4f} ({b_by})",
+              flush=True)
     return results
 
 
@@ -1418,6 +1553,7 @@ def main() -> int:
             print(f"ptxas: {line.strip()}", flush=True)
 
     kernels = phase1_vis_kernels(dev, phase1_kernels(dev))
+    phase1_channels(dev)
     kernels["sweep_warp"]["replaces"] = \
         "wildmvs/ops/mosaic_sweep.py:143 and :298"
     pred, counts, serving = phase2_serving()
@@ -1440,7 +1576,7 @@ def main() -> int:
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "events_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "staged_share", "launches_by_path"]
-    extra = ["plain_staged_share", "softmin_ms", "views", "vis", "stage1",
+    extra = ["device_atomics", "softmin_ms", "views", "vis", "stage1",
              "stage2"]
     for k in kernels.values():
         k.setdefault("staged_share", None)      # kernels without footprints

@@ -78,11 +78,12 @@ def hypotheses(rng, D, ref_hw, per_pixel, near=400.0, far=900.0):
 
 
 def assert_conservative(P, Q, s, tile, src_hw, scale=sk.UNIT_SCALE,
-                        clamp=None, d_run=1):
-    """Every live sample of a staged stage has its four corners in the
-    stage's box. Returns the share of staged stages."""
+                        clamp=None, d_run=1, cells_max=None):
+    """Every live sample of a staged stage (under a budget of cells_max
+    cells, None: none) has its four corners in the stage's box. Returns
+    the share of staged stages."""
     staged, box = sk.sweep_footprints(P, Q, s, tile, src_hw, scale, clamp,
-                                      d_run)
+                                      d_run, cells_max)
     h, w = src_hw
     x, y = sk.source_coords(*sk._project(P, Q, s), scale, clamp)
     x0, y0 = torch.floor(x), torch.floor(y)
@@ -291,5 +292,5 @@ def test_counting_tiles_is_scoped():
     assert sk._tile_counter is None
     with sk.counting_tiles(torch.device("cpu")) as counter:
         assert sk._tile_counter is counter
-        assert counter.tolist() == [0, 0]
+        assert counter.tolist() == [0, 0, 0]
     assert sk._tile_counter is None

@@ -13,7 +13,8 @@ package so each counterpart is easy to find:
   ops/sweep_kernels.py     the Hopper kernels' wrappers + plain versions,
                            the warp's autograd (SweepWarpFn), the planes
   csrc/                    the hand-written CUDA kernels (sweep.cu,
-                           gwc.cu, sampler.cuh; built on first use)
+                           warp.cu, footprint.cuh, sampler.cuh; built on
+                           first use)
   nn/blocks.py             ConvBnReLU / ConvTransposeBnReLU, BasicBlock /
                            ResLayer / UNet
   models/                  api (registry), MVSNet and Vis-MVSNet (eval and

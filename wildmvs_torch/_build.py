@@ -32,8 +32,8 @@ _F = ctypes.c_float
 # C signatures of csrc/*.cu (argument order as declared there); _F * 6 is a
 # coordinate convention (sx, sy, x_lo, x_hi, y_lo, y_hi)
 SIGNATURES = {
-    "wm_sweep_warp": [_P] * 5 + [_I] * 8 + [_F] * 6 + [_P],
-    "wm_sweep_warp_backward": [_P] * 5 + [_I] * 9 + [_F] * 6 + [_P],
+    "wm_sweep_warp": [_P] * 6 + [_I] * 10 + [_F] * 6 + [_P],
+    "wm_sweep_warp_backward": [_P] * 6 + [_I] * 9 + [_F] * 6 + [_P],
     "wm_fused_cost_volume": [_P] * 8 + [_I] * 12 + [_P],
     "wm_sweep_gwc": [_P] * 7 + [_I] * 10 + [_F] * 6 + [_P],
 }

@@ -1,6 +1,10 @@
-// Source footprints staged in shared memory: the design that the two
-// forward sweep kernels that read many samples per source pixel share
-// (fused_cost_volume in csrc/sweep.cu, sweep_gwc in csrc/gwc.cu).
+// Source footprints in shared memory: the design of the port's forward
+// sweep kernels, since each reads many samples per source pixel. Three
+// kernels copy the footprint's bf16 features into shared memory and sample
+// from there: fused_cost_volume (csrc/sweep.cu), sweep_warp and sweep_gwc
+// (csrc/warp.cu). The warp's transpose, sweep_warp_backward (csrc/sweep.cu),
+// shares the tile, the run and their set-up (make_tile, load_tile_planes,
+// hyp_range) but stages nothing (see "The backward" below).
 //
 // A block owns a tile of tile_h x kTileW reference pixels (C/8 threads a
 // pixel, one per 8-channel slice) over a run of kDRun hypotheses. It loads
@@ -46,6 +50,15 @@
 // barriers, ran slower than the one-thread-a-sample kernels they
 // replaced (PERF.md). The
 // sampling also shares the taps (the divisions) among a pixel's threads.
+//
+// The backward. An f32 accumulator of the footprint in shared memory,
+// which the block would add into the source gradient once, measured slower
+// at every training shape on an H100 than adding each sample's corners
+// into device memory (PERF.md): an f32 add into shared memory is a
+// compare-and-swap loop (ATOMS.CAST.SPIN) that waits for its answer, where
+// a 16-byte add into device memory (RED) does not wait. So
+// sweep_warp_backward keeps its corner sums in registers while a sample
+// stays in one source cell, and adds into device memory when it moves.
 #pragma once
 
 #include "sampler.cuh"
@@ -441,6 +454,17 @@ __device__ __forceinline__ void place_footprints(Footprint* fps, int NV,
   }
 }
 
+// Add a block's counts of staged and global stages to tile_counter[0..1]
+// unless it is null (sweep_kernels.counting_tiles; sweep_warp_backward
+// counts its atomics into tile_counter[2]).
+__device__ __forceinline__ void count_stages(unsigned long long* tile_counter,
+                                             int n_staged, int n_global) {
+  if (tile_counter != nullptr && threadIdx.x == 0) {
+    atomicAdd(tile_counter, (unsigned long long)n_staged);
+    atomicAdd(tile_counter + 1, (unsigned long long)n_global);
+  }
+}
+
 // Place the footprints of m.fps (after a block barrier), copy every staged
 // one (view v of img + v * stride) into the stage buffer and wait for the
 // copies; counts the staged and the global views into tile_counter[0..1]
@@ -461,10 +485,7 @@ __device__ __forceinline__ void stage_all(const StageSmem& m,
   }
   cp_async_commit();
   cp_async_wait_all();
-  if (tile_counter != nullptr && threadIdx.x == 0) {
-    atomicAdd(tile_counter, (unsigned long long)n_staged);
-    atomicAdd(tile_counter + 1, (unsigned long long)(NV - n_staged));
-  }
+  count_stages(tile_counter, n_staged, NV - n_staged);
   __syncthreads();
 }
 

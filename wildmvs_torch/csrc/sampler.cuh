@@ -1,5 +1,5 @@
 // The bilinear sampler that every plane-sweep kernel of the port shares
-// (csrc/sweep.cu, csrc/gwc.cu).
+// (csrc/sweep.cu, csrc/warp.cu).
 //
 // One projection form serves both sweep conventions: for reference pixel
 // (y, x) and hypothesis s (per plane [D] or per pixel [D, H, W]),
@@ -28,7 +28,6 @@
 namespace wm {
 
 constexpr int kVec = 8;         // bf16 channels per 16-byte access
-constexpr int kThreads = 256;   // threads per block
 
 // The coordinate convention of a sweep (see above).
 struct Convention {
@@ -45,15 +44,6 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[kVec]) {
     v[2 * i] = f.x;
     v[2 * i + 1] = f.y;
   }
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[kVec]) {
-  uint4 raw;
-  __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < kVec / 2; ++i)
-    h2[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = raw;
 }
 
 // One coordinate of the projective point, p * s + q, rounded after the
@@ -136,20 +126,6 @@ __device__ __forceinline__ void corners8(const __nv_bfloat16* __restrict__ img,
   for (int k = 0; k < 4; ++k)
 #pragma unroll
     for (int i = 0; i < kVec; ++i) acc[i] += wts[k] * v[k][i];
-}
-
-// Bilinear border-zero sample of channels [c0, c0+8) of img [h, w, C] at
-// the projective point (rx, ry, rz); adds the result into acc.
-template <bool kConv>
-__device__ __forceinline__ void sample8(const __nv_bfloat16* __restrict__ img,
-                                        int h, int w, int C, int c0,
-                                        float rx, float ry, float rz,
-                                        const Convention& cv,
-                                        float acc[kVec]) {
-  int x0, y0;
-  float fx, fy;
-  if (!taps<kConv>(rx, ry, rz, cv, h, w, x0, y0, fx, fy)) return;
-  corners8(img, h, w, C, c0, x0, y0, fx, fy, acc);
 }
 
 inline int log2_exact(int g) {

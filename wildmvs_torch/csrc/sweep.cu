@@ -1,30 +1,22 @@
-// Plane-sweep kernels for Hopper (sm_90a): the per-view warp and its
-// transpose (the MVSNet and Vis-MVSNet training forward and backward) and
-// the fused multi-view cost volume of the MVSNet depthmap forward.
+// Plane-sweep kernels for Hopper (sm_90a): the fused multi-view cost
+// volume of the MVSNet depthmap forward, and the per-view warp's transpose
+// (the MVSNet and Vis-MVSNet training backward). The warp itself and the
+// Vis group-wise correlation are in warp.cu.
 //
 // Each replaces Pallas TPU kernels of wildmvs/ops/mosaic_sweep.py:
-//   wm_sweep_warp           <- _kernel / mosaic_sweep_warp        (:143-270)
-//                              _kernel_px / mosaic_sweep_warp_px  (:298-624)
+//   wm_fused_cost_volume    <- _kernel_fused / fused_cost_volume_px (:811-1117)
 //   wm_sweep_warp_backward  <- _kernel_scatter_px / mosaic_scatter_px
 //                                                                (:1930-2088)
-//   wm_fused_cost_volume    <- _kernel_fused / fused_cost_volume_px (:811-1117)
 // They compute what those kernels compute, not how: a Hopper gather has no
 // lane window and no VMEM budget, so the TPU's corner table, span plans,
 // window tiers and exact-gather fallbacks have no counterpart here, and
 // the kernels are exact for any rig geometry.
 //
 // The projection, the coordinate convention (MVSNet or Vis-MVSNet) and the
-// bilinear border-zero sampler are sampler.cuh's. Outputs are rounded once
-// to bf16 (round to nearest even).
-//
-// Layout: features channels-last [.., h, w, C] bf16; outputs [B, D, H, W, C]
-// bf16. In the warp and its backward one thread owns one (d, y, x, 8-channel
-// group): a group is one 16-byte load per corner, and the C/8 threads of a
-// pixel are neighbours, so a warp reads each corner of a pixel as one
-// contiguous C*2-byte run and writes a contiguous run of output. Their bound
-// is the bytes of the volume they write or read (the source maps, 1-10 MB,
-// stay in the 50 MB L2). The fused kernel stages its tile's source
-// footprints in shared memory (footprint.cuh).
+// bilinear border-zero sampler are sampler.cuh's; both kernels work on the
+// tiles of footprint.cuh, and the fused kernel on its staged footprints.
+// Features are channels-last [.., h, w, C] bf16; volumes [B, D, H, W, C]
+// bf16, rounded once to bf16 (round to nearest even).
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() so the caller can raise on a refused launch.
@@ -34,46 +26,9 @@
 namespace {
 
 using wm::Convention;
-using wm::kThreads;
 using wm::kVec;
 using wm::load8;
 using wm::proj1;
-using wm::sample8;
-using wm::store8;
-
-// ---------------------------------------------------------------------------
-// Per-view warp: src [B, h, w, C] -> out [B, D, H, W, C].
-// grid (ceil(H*W*G / kThreads), D, B), G = C / 8 threads per pixel.
-// ---------------------------------------------------------------------------
-template <bool kConv>
-__global__ void __launch_bounds__(kThreads)
-sweep_warp_kernel(const __nv_bfloat16* __restrict__ src,
-                  const float* __restrict__ P, const float* __restrict__ Q,
-                  const float* __restrict__ s, __nv_bfloat16* __restrict__ out,
-                  int D, int H, int W, int h, int w, int C, int log2g,
-                  int s_per_pixel, Convention cv) {
-  const int d = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hw = H * W;
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (hw << log2g)) return;
-  const int g = t & ((1 << log2g) - 1);
-  const int pix = t >> log2g;                   // y * W + x
-
-  const size_t plane = (size_t)b * 3 * hw + pix;
-  const float sv = s_per_pixel ? s[((size_t)b * D + d) * hw + pix]
-                               : s[(size_t)b * D + d];
-  const float rx = proj1(P[plane], sv, Q[plane]);
-  const float ry = proj1(P[plane + hw], sv, Q[plane + hw]);
-  const float rz = proj1(P[plane + 2 * hw], sv, Q[plane + 2 * hw]);
-
-  float acc[kVec];
-#pragma unroll
-  for (int i = 0; i < kVec; ++i) acc[i] = 0.f;
-  sample8<kConv>(src + (size_t)b * h * w * C, h, w, C, g * kVec, rx, ry, rz,
-                 cv, acc);
-  store8(out + (((size_t)b * D + d) * hw + pix) * C + g * kVec, acc);
-}
 
 // ---------------------------------------------------------------------------
 // Fused cost volume: ref [B, H, W, C], srcs [B, NV, h, w, C],
@@ -232,22 +187,34 @@ fused_cost_volume_kernel(const __nv_bfloat16* __restrict__ ref,
 }
 
 // ---------------------------------------------------------------------------
-// Warp backward (the transpose of sweep_warp_kernel):
+// Warp backward (the transpose of sweep_warp, warp.cu):
 //   g [B, D, H, W, C] bf16 -> df [B, h, w, C] f32 (zeroed by the caller),
 //   df[corner] += w_corner * g[d, y, x] for each live sample's four corners
-//   that lie inside the image.
-// grid (ceil(H*W*G / kThreads), ceil(D / d_chunk), B): one thread owns one
-// (y, x, 8-channel group) over a run of d_chunk hypotheses. Coordinates,
-// the validity test and the f32 weights are sample8's (wm::taps), in the
-// forward's convention. A pixel's sample
-// moves slowly along D, so the thread sums its four corners' contributions
-// in registers while the sample stays in one source cell (x0, y0) and
-// flushes them with vector f32 atomics (two 16-byte reductions per corner)
-// only when the cell changes and at the end of its run.
-// Bound: HBM bytes (g read once, df written once) unless the atomics set the
-// pace; df (2.6 MB at 128x160 C=32) stays in L2, where the atomics resolve.
-// The order of the atomic adds changes from run to run, so df may differ in
-// the last f32 bits between runs.
+//   that lie inside the image; coordinates, the validity test and the f32
+//   weights are the forward's (proj1, wm::taps).
+//
+// Bound: HBM bytes, g read once and df written once (252 MB at the 512x640
+// headline's 128x160 features, C=32, D=192: 0.076 ms at 3.35 TB/s). On the
+// card its 16-byte f32 atomics into device memory set the pace: the first
+// design (one thread per pixel and 8 channels over a run of 16 hypotheses,
+// adding all four corners into df whenever its sample changed cell) took
+// 0.325 ms on an H100, and 0.142 ms with the same loads, taps and register
+// sums but no atomics (PERF.md). Design (footprint.cuh's tile): grid
+// (tiles, runs of kDRun hypotheses, B); a block of tile_h x kTileW pixels
+// x C/8 threads loads the tile's planes and the run's hypotheses once. The
+// C/8 threads of a pixel take the run C/8 hypotheses at a time: each
+// computes the taps of one and they share them by shuffles. A thread sums
+// its four corners' weights times its 8 gradient channels in registers
+// while the sample stays in one source cell; when the cell changes
+// (move_cell) it keeps the two corners that a move of one cell shares and
+// adds the others that lie inside the image into df with 16-byte atomics,
+// which it does not wait for (RED). An f32 accumulator of the tile's
+// footprint in shared memory, added into df once a block, was slower at
+// every training shape: on Hopper an f32 add into shared memory is a
+// compare-and-swap loop that its thread waits for (PERF.md). The launch
+// adds its count of 16-byte atomics to tile_counter[2] unless it is null.
+// The order of the f32 adds changes from run to run, so df may differ in
+// the last bits between runs.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ void red_add8(float* p, const float v[kVec]) {
   atomicAdd(reinterpret_cast<float4*>(p),
@@ -256,130 +223,179 @@ __device__ __forceinline__ void red_add8(float* p, const float v[kVec]) {
             make_float4(v[4], v[5], v[6], v[7]));
 }
 
-__device__ __forceinline__ void flush_cell(float* __restrict__ dfb, int h,
-                                           int w, int C, int cx, int cy,
-                                           float acc[4][kVec]) {
+// The sample's cell moves from the packed cell `code` ((x0 + 1) | (y0 + 1)
+// << 16) to `next` (-1: none): add the corner sums acc that the new cell
+// does not share and that lie inside the image into dfb (the thread's
+// channels of df[b]); the corners the two cells share (a move of one cell)
+// stay in acc as the new cell's, the others become zero. Returns the
+// 16-byte atomics it issued.
+template <int C>
+__device__ __forceinline__ int move_cell(float* dfb, int h, int w, int code,
+                                         int next, float acc[4][kVec]) {
+  const int x0 = (code & 0xffff) - 1, y0 = (code >> 16) - 1;
+  int dx = 2, dy = 2;                          // no shared corner
+  if (next >= 0) {
+    const int mx = (next & 0xffff) - 1 - x0, my = (next >> 16) - 1 - y0;
+    if (abs(mx) + abs(my) == 1) {
+      dx = mx;
+      dy = my;
+    }
+  }
+  int n = 0;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const int xi = cx + (k & 1);
-    const int yi = cy + (k >> 1);
-    if (xi >= 0 && xi < w && yi >= 0 && yi < h)
+    const int xi = x0 + (k & 1), yi = y0 + (k >> 1);
+    if ((unsigned)((k & 1) - dx) <= 1u && (unsigned)((k >> 1) - dy) <= 1u)
+      continue;                                // shared with the new cell
+    if (xi >= 0 && xi < w && yi >= 0 && yi < h) {
       red_add8(dfb + ((size_t)yi * w + xi) * C, acc[k]);
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) acc[k][i] = 0.f;
+      n += 2;
+    }
   }
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    const float a0 = acc[0][i], a1 = acc[1][i], a2 = acc[2][i],
+                a3 = acc[3][i];
+    acc[0][i] = dx == 1 ? a1 : dy == 1 ? a2 : 0.f;
+    acc[1][i] = dx == -1 ? a0 : dy == 1 ? a3 : 0.f;
+    acc[2][i] = dx == 1 ? a3 : dy == -1 ? a0 : 0.f;
+    acc[3][i] = dx == -1 ? a2 : dy == -1 ? a1 : 0.f;
+  }
+  return n;
 }
 
-template <bool kConv>
-__global__ void __launch_bounds__(kThreads)
+template <bool kConv, int kLog2g>
+__global__ void __launch_bounds__(wm::kMaxTileThreads, 3)
 sweep_warp_backward_kernel(const __nv_bfloat16* __restrict__ g,
                            const float* __restrict__ P,
                            const float* __restrict__ Q,
                            const float* __restrict__ s,
                            float* __restrict__ df,
-                           int D, int H, int W, int h, int w, int C,
-                           int log2g, int s_per_pixel, int d_chunk,
-                           Convention cv) {
+                           unsigned long long* __restrict__ tile_counter,
+                           int D, int H, int W, int h, int w,
+                           int s_per_pixel, int tile_h, Convention cv) {
+  constexpr int G = 1 << kLog2g;              // threads of a pixel
+  constexpr int C = G * kVec;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const wm::Tile t = wm::make_tile(H, W, tile_h, kLog2g);
+  const wm::StageSmem m = wm::carve(smem, 1, 0, C, t.npx);
   const int b = blockIdx.z;
   const int hw = H * W;
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (hw << log2g)) return;
-  const int grp = t & ((1 << log2g) - 1);
-  const int pix = t >> log2g;                   // y * W + x
-  const int c0 = grp * kVec;
-  const int d0 = blockIdx.y * d_chunk;
-  const int d1 = min(d0 + d_chunk, D);
+  const int d0 = blockIdx.y * wm::kDRun;
+  const int d_end = min(d0 + wm::kDRun, D);
+  const int slice = threadIdx.x & (G - 1);
+  const int c0 = slice * kVec;
 
-  const size_t plane = (size_t)b * 3 * hw + pix;
-  const float px = P[plane], py = P[plane + hw], pz = P[plane + 2 * hw];
-  const float qx = Q[plane], qy = Q[plane + hw], qz = Q[plane + 2 * hw];
+  wm::load_tile_planes(m.pq, P, Q, b, 1, H, W, t);
+  wm::hyp_range(m.sred, m.sv, s, s_per_pixel, b, D, hw, d0, d_end, t,
+                slice == 0);
+  __syncthreads();
+  const float px = m.pq[t.slot], py = m.pq[t.npx + t.slot],
+              pz = m.pq[2 * t.npx + t.slot];
+  const float qx = m.pq[3 * t.npx + t.slot], qy = m.pq[4 * t.npx + t.slot],
+              qz = m.pq[5 * t.npx + t.slot];
+
   float* dfb = df + (size_t)b * h * w * C + c0;
-
+  const __nv_bfloat16* gp = g + (((size_t)b * D + d0) * hw + t.pix) * C + c0;
   float acc[4][kVec];
 #pragma unroll
   for (int k = 0; k < 4; ++k)
 #pragma unroll
     for (int i = 0; i < kVec; ++i) acc[k][i] = 0.f;
-  bool have = false;                            // acc holds cell (cx, cy)
-  int cx = 0, cy = 0;
-  for (int d = d0; d < d1; ++d) {
-    const float sv = s_per_pixel ? s[((size_t)b * D + d) * hw + pix]
-                                 : s[(size_t)b * D + d];
-    // the forward's arithmetic (proj1, wm::taps)
-    int x0, y0;
-    float fx, fy;
-    if (!wm::taps<kConv>(proj1(px, sv, qx), proj1(py, sv, qy),
-                         proj1(pz, sv, qz), cv, h, w, x0, y0, fx, fy))
-      continue;                                 // a dead sample
-    if (have && (x0 != cx || y0 != cy)) flush_cell(dfb, h, w, C, cx, cy, acc);
-    have = true;
-    cx = x0;
-    cy = y0;
-    const float wts[4] = {(1.f - fy) * (1.f - fx), (1.f - fy) * fx,
-                          fy * (1.f - fx), fy * fx};
-    float gv[kVec];
-    load8(g + (((size_t)b * D + d) * hw + pix) * C + c0, gv);
+  int cur = -1;                               // the packed cell acc holds
+  int n_atomics = 0;
+  const int lane0 = (threadIdx.x & 31) & ~(G - 1);
+  for (int d = d0; d < d_end; d += G) {
+    int mine = -1;                            // dead
+    float mfx = 0.f, mfy = 0.f;
+    if (d + slice < d_end) {
+      const float sv = m.sv[(d + slice - d0) * t.npx + t.slot];
+      int x0, y0;
+      if (wm::taps<kConv>(proj1(px, sv, qx), proj1(py, sv, qy),
+                          proj1(pz, sv, qz), cv, h, w, x0, y0, mfx, mfy))
+        mine = (x0 + 1) | ((y0 + 1) << 16);
+    }
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
+    for (int j = 0; j < G; ++j) {
+      const int code = __shfl_sync(wm::kFullMask, mine, lane0 | j);
+      const float fx = __shfl_sync(wm::kFullMask, mfx, lane0 | j);
+      const float fy = __shfl_sync(wm::kFullMask, mfy, lane0 | j);
+      if (d + j >= d_end) break;                   // uniform in the block
+      if (code < 0 || !t.live) continue;
+      if (code != cur) {
+        if (cur >= 0) n_atomics += move_cell<C>(dfb, h, w, cur, code, acc);
+        cur = code;
+      }
+      const float wts[4] = {(1.f - fy) * (1.f - fx), (1.f - fy) * fx,
+                            fy * (1.f - fx), fy * fx};
+      float gv[kVec];
+      load8(gp + (size_t)(d + j - d0) * hw * C, gv);
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) acc[k][i] += wts[k] * gv[i];
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) acc[k][i] += wts[k] * gv[i];
+    }
   }
-  if (have) flush_cell(dfb, h, w, C, cx, cy, acc);
+  if (cur >= 0) n_atomics += move_cell<C>(dfb, h, w, cur, -1, acc);
+  if (tile_counter != nullptr) {
+    const unsigned n = __reduce_add_sync(wm::kFullMask, (unsigned)n_atomics);
+    if ((threadIdx.x & 31) == 0 && n != 0)
+      atomicAdd(tile_counter + 2, (unsigned long long)n);
+  }
+}
+
+using BackwardKernel = decltype(&sweep_warp_backward_kernel<false, 0>);
+
+template <bool kConv>
+BackwardKernel backward_kernel(int log2g) {
+  switch (log2g) {
+    case 0: return sweep_warp_backward_kernel<kConv, 0>;
+    case 1: return sweep_warp_backward_kernel<kConv, 1>;
+    case 2: return sweep_warp_backward_kernel<kConv, 2>;
+    case 3: return sweep_warp_backward_kernel<kConv, 3>;
+    case 4: return sweep_warp_backward_kernel<kConv, 4>;
+    default: return sweep_warp_backward_kernel<kConv, 5>;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 = success);
-// cudaErrorInvalidValue for arguments the kernel does not take.
-// (sx, sy, x_lo, x_hi, y_lo, y_hi): the coordinate convention (sampler.cuh).
-int wm_sweep_warp(const void* src, const void* P, const void* Q,
-                  const void* s, void* out, int B, int D, int H, int W,
-                  int h, int w, int C, int s_per_pixel, float sx, float sy,
-                  float x_lo, float x_hi, float y_lo, float y_hi,
-                  void* stream) {
-  const int log2g = (C % kVec) ? -1 : wm::log2_exact(C / kVec);
-  if (log2g < 0 || B <= 0 || D <= 0 || H <= 0 || W <= 0 || h <= 0 ||
-      w <= 0 || B > 65535 || D > 65535)
-    return (int)cudaErrorInvalidValue;
-  const long long n_thr = (long long)H * W << log2g;
-  if (n_thr > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((n_thr + kThreads - 1) / kThreads), D, B);
-  const Convention cv{sx, sy, x_lo, x_hi, y_lo, y_hi};
-  auto kernel = wm::is_identity(cv) ? sweep_warp_kernel<false>
-                                    : sweep_warp_kernel<true>;
-  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)src, (const float*)P, (const float*)Q,
-      (const float*)s, (__nv_bfloat16*)out, D, H, W, h, w, C, log2g,
-      s_per_pixel, cv);
-  return (int)cudaGetLastError();
-}
-
 // df must be zeroed by the caller; the kernel only adds into it.
+// tile_counter: null, or 3 device counters, of which the launch adds its
+// 16-byte atomics into df to the third. tile_h: rows of a block's tile (of
+// kTileW columns). (sx, sy, x_lo, x_hi, y_lo, y_hi): the coordinate
+// convention (sampler.cuh).
 int wm_sweep_warp_backward(const void* g, const void* P, const void* Q,
-                           const void* s, void* df, int B, int D, int H,
-                           int W, int h, int w, int C, int s_per_pixel,
-                           int d_chunk, float sx, float sy, float x_lo,
-                           float x_hi, float y_lo, float y_hi,
+                           const void* s, void* df, void* tile_counter,
+                           int B, int D, int H, int W, int h, int w, int C,
+                           int s_per_pixel, int tile_h, float sx, float sy,
+                           float x_lo, float x_hi, float y_lo, float y_hi,
                            void* stream) {
   const int log2g = (C % kVec) ? -1 : wm::log2_exact(C / kVec);
-  if (log2g < 0 || B <= 0 || D <= 0 || H <= 0 || W <= 0 || h <= 0 ||
-      w <= 0 || d_chunk <= 0 || B > 65535)
+  if (log2g < 0 || log2g > 5 || B <= 0 || D <= 0 || H <= 0 || W <= 0 ||
+      h <= 0 || w <= 0 || h > 32767 || w > 32767 || B > 65535 || tile_h <= 0)
     return (int)cudaErrorInvalidValue;
-  const long long n_thr = (long long)H * W << log2g;
-  const long long n_chunks = ((long long)D + d_chunk - 1) / d_chunk;
-  if (n_thr > 0x7fffffffLL || n_chunks > 65535)
+  const long long threads = (long long)tile_h * wm::kTileW << log2g;
+  const long long n_tiles = (long long)((H + tile_h - 1) / tile_h) *
+                            ((W + wm::kTileW - 1) / wm::kTileW);
+  const long long n_runs =
+      ((long long)D + wm::kDRun - 1) / wm::kDRun;
+  if (threads > wm::kMaxTileThreads || threads % 32 != 0 ||
+      n_tiles > 0x7fffffffLL || n_runs > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((n_thr + kThreads - 1) / kThreads),
-                  (unsigned)n_chunks, B);
+  const size_t smem = wm::footprint_smem_bytes(1, 0, C, tile_h * wm::kTileW,
+                                               (int)threads);
   const Convention cv{sx, sy, x_lo, x_hi, y_lo, y_hi};
-  auto kernel = wm::is_identity(cv) ? sweep_warp_backward_kernel<false>
-                                    : sweep_warp_backward_kernel<true>;
-  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  const BackwardKernel kernel = wm::is_identity(cv)
+                                    ? backward_kernel<false>(log2g)
+                                    : backward_kernel<true>(log2g);
+  const dim3 grid((unsigned)n_tiles, (unsigned)n_runs, B);
+  kernel<<<grid, (unsigned)threads, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)g, (const float*)P, (const float*)Q,
-      (const float*)s, (float*)df, D, H, W, h, w, C, log2g, s_per_pixel,
-      d_chunk, cv);
+      (const float*)s, (float*)df, (unsigned long long*)tile_counter, D, H,
+      W, h, w, s_per_pixel, tile_h, cv);
   return (int)cudaGetLastError();
 }
 

@@ -1,29 +1,40 @@
 """The port's plane-sweep kernels: wrappers, plain versions, launch counts.
 
-Four hand-written CUDA kernels for Hopper (csrc/sweep.cu, csrc/gwc.cu,
+Four hand-written CUDA kernels for Hopper (csrc/sweep.cu, csrc/warp.cu,
 built on first use by _build.py) replace the five Pallas TPU kernels of
-wildmvs/ops/mosaic_sweep.py:
+wildmvs/ops/mosaic_sweep.py. All four share one block structure
+(csrc/footprint.cuh): a block owns 8x8 reference pixels x C/8 threads,
+one thread per (pixel, 8-channel slice), over a run of
+FOOTPRINT_D_RUN hypotheses, and loads the tile's planes and the run's
+hypotheses once. The three forward kernels read their samples from the
+box of source cells that the tile's samples over the run reach, copied
+into shared memory (exact: a sample outside the box reads device memory).
 
   sweep_warp          <- _kernel / mosaic_sweep_warp (:143-270) and
       _kernel_px / mosaic_sweep_warp_px (:298-624). One source view warped
       over D hypotheses -> [B, D, H, W, C] bf16, in either convention.
       Bound: HBM bytes. At the 512x640 headline (128x160 features, C=32,
       D=192) it writes 251.7 MB and reads about 1.8 MB (source map plus
-      the P/Q planes): about 76 us at 3.35 TB/s. Design: one thread per
-      (d, y, x, 8-channel group); each corner read and each output write is
-      one 16-byte access, contiguous across the C/8 threads of a pixel; the
-      source map (1.3 MB) stays in the 50 MB L2. Differentiable in the
-      features through SweepWarpFn.
+      the P/Q planes): about 76 us at 3.35 TB/s; on the card the
+      instructions of its samples set the pace. Design (csrc/warp.cu, the
+      loop of sweep_gwc): the block stages the tile's bf16 footprint over
+      a run of FOOTPRINT_D_RUN hypotheses, the C/8 threads of a pixel share
+      the taps of C/8 hypotheses at a time, and each thread stores its 8
+      channels with a streaming store. Differentiable in the features
+      through SweepWarpFn.
   sweep_warp_backward <- _kernel_scatter_px / mosaic_scatter_px
       (:1930-2088). The warp's transpose: gradient g [B, D, H, W, C] bf16
       -> source-feature gradient [B, h, w, C], accumulated in f32.
-      Bound: HBM bytes (251.7 MB of g read at the headline, ~76 us) unless
-      the f32 atomics set the pace. Design: one thread per (y, x, 8-channel
-      group) and run of BACKWARD_D_CHUNK hypotheses; it sums its four
-      corners in registers while the sample stays in one source cell and
-      flushes them with 16-byte vector atomics when the cell changes. No
-      one-hot MXU contraction, KY/NTS window, VMEM canvas, channel split
-      or XLA fallback: an atomic scatter has no window.
+      Bound: HBM bytes (251.7 MB of g read at the headline, ~76 us); on the
+      card its 16-byte f32 atomics into device memory set the pace.
+      Design (csrc/sweep.cu): the C/8 threads of a pixel share the taps
+      of C/8 hypotheses at a time; a thread sums its four corners in
+      registers while its sample stays in one source cell, keeps the two
+      corners that a move of one cell shares and adds the others into the
+      gradient with 16-byte atomics. (An f32 accumulator of the tile's
+      footprint in shared memory measured slower: PERF.md.) No one-hot
+      MXU contraction, KY/NTS window or channel split: an atomic scatter
+      has no window.
   sweep_gwc           <- _kernel_px_gwc / mosaic_sweep_warp_px_gwc
       (:627-791). The Vis-MVSNet per-pair cost volume: the warp fused with
       the group-wise correlation against the reference features ->
@@ -32,14 +43,10 @@ wildmvs/ops/mosaic_sweep.py:
       D=16, per-pixel hypotheses) it writes 121.2 MB and reads about
       102 MB (reference, source, hypotheses, planes): about 67 us at
       3.35 TB/s. On the card it is bound by the instructions of its
-      samples. Design (csrc/footprint.cuh): a block of 8x8 reference pixels
-      x C/8 threads, one thread per (pixel, 8-channel slice), over a run of
-      FOOTPRINT_D_RUN hypotheses; it copies the tile's source footprint over the
-      run into shared memory and samples from there (exact: a sample
-      outside it reads device memory); the C/8 threads of a pixel share the
-      taps of C/8 hypotheses at a time; each thread sums its own groups and
-      the pixel's threads write its 16 output bytes with streaming stores.
-      No backward: it serves eval only (training warps with sweep_warp).
+      samples. Design (csrc/warp.cu): the warp's loop; each thread sums
+      its own groups and the pixel's threads write its 16 output bytes
+      with streaming stores. No backward: it serves eval only (training
+      warps with sweep_warp).
   fused_cost_volume   <- _kernel_fused / fused_cost_volume_px (:811-1117).
       All NV source views in one launch; variance (sum, sum of squares) or
       softmin (sum e*diff, sum e) statistics in f32 registers; only the
@@ -47,20 +54,20 @@ wildmvs/ops/mosaic_sweep.py:
       Bound: HBM bytes at the headline, 251.7 MB out + about 5 MB in
       (~77 us); at 1184x1600 N5 the f32 operations (~0.52 ms) about equal
       the 1.455 GB out + about 50 MB in (~0.45 ms). On the card it is bound
-      by the instructions of its samples. Design (csrc/footprint.cuh): a
-      block of 8x8 reference pixels x C/8 threads over a run of
-      FOOTPRINT_D_RUN hypotheses copies each view's source footprint over
-      the run into shared memory once (its buffer sized by NV so that the
-      block keeps 3 blocks on an SM, `footprint_plan`), then walks the
-      hypotheses with the views inside;
+      by the instructions of its samples. Design (csrc/sweep.cu): the block
+      copies each view's footprint over a run of FOOTPRINT_D_RUN
+      hypotheses into one stage buffer (sized by NV so that the block
+      keeps 3 blocks on an SM, `fused_plan`), then walks the hypotheses
+      with the views inside;
       the C/8 threads of a pixel each compute one view's taps and share
       them by shuffles, and an xor-shuffle channel sum across them gives
       softmin's per-pixel weight; streaming stores.
 
-The footprint rule of the two staged kernels is `sweep_footprints`, their
-launch geometry `footprint_plan`; inside
-`counting_tiles()` their launches count their staged and global stages on
-the card (the model paths count nothing).
+The footprint rule of the forward kernels is `sweep_footprints`, their
+launch geometry `footprint_plan` and `fused_plan` (the backward's tile is
+`_tile_rows`); inside `counting_tiles()` their launches count their
+staged and global stages on the card, and the backward its atomics (the
+model paths count nothing).
 
 None carries over the TPU's corner table, span plans, KY/KR/NT window
 tiers, lax.cond gather fallbacks, row/lane padding or depth pairing: a
@@ -408,8 +415,10 @@ def _sweep_warp_forward(src, P, Q, s, scale, clamp) -> torch.Tensor:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.wm_sweep_warp(src.data_ptr(), P.data_ptr(), Q.data_ptr(),
-                               s.data_ptr(), out.data_ptr(), b, D, H, W, h,
-                               w, c, int(s.dim() == 4), *conv, stream)
+                               s.data_ptr(), out.data_ptr(),
+                               _counter_ptr(dev), b, D, H, W, h, w, c,
+                               int(s.dim() == 4), *footprint_plan(c), *conv,
+                               stream)
     _build.check(rc, "wm_sweep_warp")
     sweep_warp.launches += 1
     return out
@@ -468,10 +477,6 @@ def sweep_warp(src: torch.Tensor, P: torch.Tensor, Q: torch.Tensor,
 
 sweep_warp.launches = 0
 
-#: hypotheses per thread of the backward kernel (the run over which a
-#: thread sums its corners in registers before its atomics)
-BACKWARD_D_CHUNK = 16
-
 
 def sweep_warp_backward(g: torch.Tensor, P: torch.Tensor, Q: torch.Tensor,
                         s: torch.Tensor, src_hw: tuple[int, int],
@@ -510,8 +515,8 @@ def sweep_warp_backward(g: torch.Tensor, P: torch.Tensor, Q: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.wm_sweep_warp_backward(
             g.data_ptr(), P.data_ptr(), Q.data_ptr(), s.data_ptr(),
-            df.data_ptr(), b, D, H, W, h, w, c, int(s.dim() == 4),
-            BACKWARD_D_CHUNK, *conv, stream)
+            df.data_ptr(), _counter_ptr(dev), b, D, H, W, h, w, c,
+            int(s.dim() == 4), _tile_rows(c), *conv, stream)
     _build.check(rc, "wm_sweep_warp_backward")
     sweep_warp_backward.launches += 1
     return df.to(dtype)
@@ -519,7 +524,7 @@ def sweep_warp_backward(g: torch.Tensor, P: torch.Tensor, Q: torch.Tensor,
 
 sweep_warp_backward.launches = 0
 
-# The footprint kernels (fused_cost_volume, sweep_gwc; csrc/footprint.cuh).
+# The footprint plans of the kernels (csrc/footprint.cuh).
 #: hypotheses of a block's run and columns of its tile (kDRun and kTileW in
 #: csrc/footprint.cuh)
 FOOTPRINT_D_RUN, FOOTPRINT_TILE_W = 16, 8
@@ -547,28 +552,40 @@ def footprint_smem_bytes(nv: int, cells_max: int, c: int, tile_h: int) -> int:
             + FOOTPRINT_D_RUN * npx * 4 + nv * 32 + threads // 32 * 8)
 
 
-def footprint_plan(c: int, nv: int = 1, view_bytes: int = GWC_VIEW_BYTES,
-                   block_bytes: int | None = None) -> tuple[int, int]:
-    """(tile_h, cells_max) of a footprint kernel's launch for C channels and
-    NV views: 8 x FOOTPRINT_TILE_W reference pixels, C/8 threads a pixel,
-    halving the rows while that passes 256 threads, or while the planes of
-    NV views pass SMEM_LIMIT (down to one warp); the block's stage buffer
-    holds NV x view_bytes, or what block_bytes leaves after the rest of the
-    block, if less. A buffer smaller than one tile's footprint at one
-    hypothesis ((tile_h + 3) x (FOOTPRINT_TILE_W + 3) cells) would stage
-    nearly nothing: it is 0, and every sample reads device memory."""
+def _tile_rows(c: int, nv: int = 1) -> int:
+    """Rows of a footprint block's tile: 8, halved while the block passes
+    256 threads (C/8 a pixel), or while the planes of NV views pass
+    SMEM_LIMIT (down to one warp)."""
     th = 8
     while th > 1 and th * FOOTPRINT_TILE_W * (c // 8) > 256:
         th //= 2
     while (footprint_smem_bytes(nv, 0, c, th) > SMEM_LIMIT
            and th * FOOTPRINT_TILE_W * (c // 8) > 32):
         th //= 2
+    return th
+
+
+def _whole_tiles(cells: int, tile_h: int) -> int:
+    """cells, or 0 when that is less than one tile's footprint at one
+    hypothesis ((tile_h + 3) x (FOOTPRINT_TILE_W + 3) cells): such a
+    buffer would stage nearly nothing, so every sample uses device
+    memory."""
+    return cells if cells >= (tile_h + 3) * (FOOTPRINT_TILE_W + 3) else 0
+
+
+def footprint_plan(c: int, nv: int = 1, view_bytes: int = GWC_VIEW_BYTES,
+                   block_bytes: int | None = None) -> tuple[int, int]:
+    """(tile_h, cells_max) of a forward footprint kernel's launch for C
+    channels and NV views (`_tile_rows`); the block's stage buffer holds NV
+    x view_bytes, or what block_bytes leaves after the rest of the block,
+    if less (`_whole_tiles`). sweep_warp and sweep_gwc launch with
+    footprint_plan(c)."""
+    th = _tile_rows(c, nv)
     nbytes = nv * view_bytes
     if block_bytes is not None:
         spare = block_bytes - footprint_smem_bytes(nv, 0, c, th)
         nbytes = min(nbytes, max(spare, 0))
-    cells = nbytes // (2 * c)
-    return th, (cells if cells >= (th + 3) * (FOOTPRINT_TILE_W + 3) else 0)
+    return th, _whole_tiles(nbytes // (2 * c), th)
 
 
 def fused_plan(c: int, nv: int) -> tuple[int, int]:
@@ -581,13 +598,15 @@ _tile_counter = None
 
 @contextlib.contextmanager
 def counting_tiles(device):
-    """Within the block, each launch of a footprint kernel adds its count of
-    staged and of global stages (a stage: one tile, view and run of
-    hypotheses; global: read from device memory) to the yielded int64
-    tensor [2] on `device`. Outside it the kernels count nothing; the model
-    paths never open it."""
+    """Within the block, the kernels count into the yielded int64 tensor
+    [3] on `device`: each launch of a forward kernel adds its staged and
+    its global stages to [0] and [1] (a stage: one tile, view and run of
+    hypotheses; global: read from device memory), and each launch of
+    sweep_warp_backward its 16-byte atomics into device memory to [2].
+    Outside it the kernels count nothing; the model paths never open
+    it."""
     global _tile_counter
-    counter = torch.zeros(2, dtype=torch.int64, device=device)
+    counter = torch.zeros(3, dtype=torch.int64, device=device)
     prev, _tile_counter = _tile_counter, counter
     try:
         yield counter
