@@ -43,6 +43,21 @@ JAX or of the JAX package. Phases, each of which stops the run if it fails:
      finite losses and gradients, the last loss below the first; the first
      step's feature gradients against the exact gather's autograd; an eval
      and a test step (gwc launches) and a checkpoint served by Predictor.
+  8. CVP-MVSNet serving (the fifth path): Predictor(sweep_method="fused",
+     cvp_nscale=5), bf16, random weights with prob0 x PROB_GAIN, answers 3
+     requests at 1184x1600 N5 and 3 at 512x640 N3: 5 fused_cost_volume
+     launches (C = 16) a request and nothing else of the kernels; finite
+     outputs; each level's cost volume held to the exact gather on that
+     level's own inputs and the finest depth within one refinement
+     interval of the depth regressed from the gather's volume; the fused
+     kernel timed at the coarse (74x100 D96 [D]) and finest (1184x1600 D8
+     [D,H,W]) levels; run_depthmaps over 2 samples.
+  9. CVP-MVSNet training (the sixth path): 6 supervised bf16 steps at
+     512x640 N3, nscale 2: 4 sweep_warp and 4 sweep_warp_backward launches
+     (C = 16) a step, no fused or gwc launch; finite losses and gradients,
+     the last loss below the first; the first step's feature gradients at
+     both levels against the exact gather's autograd; an eval and a test
+     step (fused launches) and a checkpoint served by Predictor.
 
 Phase 1 also holds sweep_warp_backward to its plain version ([D], [D,H,W]
 and the behind-camera rig) and times it against torch's
@@ -59,8 +74,9 @@ version on a ragged shape (RAGGED: a reference grid no multiple of the
 tile, D no multiple of the run) and on a grazing rig, whose launch of a
 forward kernel mixes stages staged in shared memory with stages that use
 device memory; the warp and its backward also at every other channel
-count they take (CHANNELS, a kernel body each) in both conventions, and
-sweep_gwc at those it takes; the fused kernel also at 6, 8 and 16 source
+count they take (CHANNELS, a kernel body each) in both conventions,
+sweep_gwc and the fused kernel (variance and softmin, [D] and [D,H,W]) at
+those they take; the fused kernel also at 6, 8 and 16 source
 views (FUSED_VIEWS), where its stage buffers shrink or vanish to keep
 the block's shared memory in bounds; at each timed shape a forward
 kernel's own count of staged stages is printed beside the share that the
@@ -129,6 +145,10 @@ FUSED_VIEWS = (6, 8, 16)
 # others: each is a kernel body of its own (sweep_warp and
 # sweep_warp_backward take 8-256 in both conventions, sweep_gwc 8-64)
 CHANNELS = (8, 16, 64, 128, 256)
+# CVP-MVSNet serving: pyramid levels (the reference's DTU eval) and requests
+# at each of the two sizes
+CVP_NSCALE = 5
+CVP_REQUESTS = 3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -628,12 +648,29 @@ def phase1_channels(dev):
     """sweep_warp and sweep_warp_backward at each channel count of CHANNELS
     on the ragged crop (RAGGED) of the headline rig ([D], MVSNet
     convention) and on that crop of Vis training stage 2 (a slab of
-    per-pixel hypotheses, Vis convention), and sweep_gwc on the Vis crop at
-    the channel counts it takes, each held to its plain version."""
+    per-pixel hypotheses, Vis convention), sweep_gwc on the Vis crop at
+    the channel counts it takes, and fused_cost_volume (NV = 2, variance
+    and softmin, [D] and [D,H,W]) on the headline crop, each held to its
+    plain version."""
     rh, rw, rd = RAGGED
     tr = dict(n=3, h=HEADLINE["h"], w=HEADLINE["w"], f=HEADLINE["f"])
     for c in CHANNELS:
-        _, srcs, P, Q, s, *_ = kernel_inputs(HEADLINE, dev, C=c)
+        ref_m, srcs, P, Q, s, *_ = kernel_inputs(HEADLINE, dev, C=c)
+        # the softmin weight exp(-T * sum over C channels) as at C = 32
+        temp = torch.full((1,), 0.05 * 32 / c, device=dev)
+        s_c = s[:, :rd].contiguous()
+        s_px = (s_c[:, :, None, None] + 20.0 * torch.randn(
+            (1, rd, rh, rw), device=dev,
+            generator=torch.Generator(dev).manual_seed(5))).contiguous()
+        for agg in ("variance", "softmin"):
+            for hyp_name, s_ in (("[D]", s_c), ("[D,H,W]", s_px)):
+                a = (ref_m[:, :rh, :rw].contiguous(), srcs,
+                     P[..., :rh, :rw].contiguous(),
+                     Q[..., :rh, :rw].contiguous(), s_, temp, agg)
+                compare(f"fused_cost_volume ragged {rh}x{rw} D{rd} C{c} "
+                        f"{agg} {hyp_name}", sk.fused_cost_volume(*a),
+                        sk.fused_cost_volume_plain(*a))
+        del ref_m
         src, ref, P_v, Q_v, s_v, scale, clamp = vis_kernel_inputs(
             dev, tr, 2, rd, True, C=c)
         ref = ref[:, :rh, :rw].contiguous()
@@ -662,8 +699,13 @@ def phase1_channels(dev):
 
 
 def sharpen(pred: Predictor) -> Predictor:
+    """The predictor with its last conv (MVSNet's prob, CVP's prob0)
+    scaled by PROB_GAIN."""
+    model = pred.model
+    last = (model.cost_reg_refine.prob0 if hasattr(model, "cost_reg_refine")
+            else model.cost_regularization.prob)
     with torch.no_grad():
-        pred.model.cost_regularization.prob.weight.mul_(PROB_GAIN)
+        last.weight.mul_(PROB_GAIN)
     return pred
 
 
@@ -1528,6 +1570,322 @@ def phase7_vis_training(dev):
         feature_grad_max_rel_err=grad_err, **prof))
 
 
+# ---------------------------------------------------------------------------
+# CVP-MVSNet
+# ---------------------------------------------------------------------------
+
+def record_levels(model):
+    """Patch the CVP model's cost_volume so that each call keeps its level's
+    inputs and cost volume in the returned list (coarse first). Returns
+    (list, undo)."""
+    levels = []
+    real = model.cost_volume
+
+    def recording(flevel, proj, hyp, method):
+        cv = real(flevel, proj, hyp, method)
+        levels.append(dict(flevel=[f.detach() for f in flevel], proj=proj,
+                           hyp=hyp.detach(), cv=cv.detach()))
+        return cv
+    model.cost_volume = recording
+    return levels, lambda: delattr(model, "cost_volume")
+
+
+def cvp_agreement(pred, scene):
+    """Each level of the fused path against the exact gather on that level's
+    own inputs (features, projections, hypotheses): the cost volume within
+    bf16 rounding (max 0.03, mean 0.002 of its scale), and the finest depth
+    regressed from the gather's volume within one refinement interval of
+    the kernel path's on >= 95 % of pixels. Returns the worst ratios and
+    the level inputs (for the kernel timings)."""
+    model = pred.model
+    levels, undo = record_levels(model)
+    try:
+        out = pred(*scene)
+    finally:
+        undo()
+    check(len(levels) == CVP_NSCALE, f"{len(levels)} levels recorded")
+    worst = {}
+    with torch.inference_mode():
+        for i, lv in enumerate(levels):
+            cv_g = model.cost_volume(lv["flevel"], lv["proj"], lv["hyp"],
+                                     "gather").float()
+            scale = cv_g.abs().max().item()
+            err = (lv["cv"].float() - cv_g).abs()
+            mx, mean = err.max().item() / scale, err.mean().item() / scale
+            worst[f"level{i}"] = mx
+            D, H, W = lv["cv"].shape[1:4]
+            print(f"phase8 level {i} ({H}x{W}, D{D}) cost volume vs gather: "
+                  f"max {mx:.5f} mean {mean:.6f} of the scale {scale:.4g}",
+                  flush=True)
+            check(mx <= 0.03 and mean <= 0.002,
+                  f"CVP level {i} cost volume disagrees with the gather")
+        _, depth_g = model.regress(cv_g.to(lv["cv"].dtype), lv["hyp"])
+    interval = (lv["hyp"][:, 1] - lv["hyp"][:, 0]).flatten()[0].item()
+    derr = np.abs(out["depth"] - depth_g[0].float().cpu().numpy()) / interval
+    within = float((derr < 1.0).mean())
+    print(f"phase8 finest depth vs the gather's on the same inputs: mean "
+          f"{derr.mean():.4f} refinement intervals ({interval:.4f} mm), "
+          f"{within:.4f} within 1, max {derr.max():.3f}", flush=True)
+    check(within >= 0.95, f"CVP finest depth within one interval on "
+          f"{within:.4f} of pixels")
+    worst.update(finest_within_1=within, finest_mean_intervals=float(
+        derr.mean()))
+    return worst, levels
+
+
+def cvp_level_kernel(lv, name):
+    """fused_cost_volume at one recorded CVP eval level: held to its plain
+    version, timed by CUDA-graph replay and bounded."""
+    f = lv["flevel"]
+    ref = f[0].to(torch.bfloat16).contiguous()
+    srcs = torch.stack(f[1:], 1).to(torch.bfloat16).contiguous()
+    fh, fw = ref.shape[1:3]
+    planes = [sk.mvsnet_planes(lv["proj"][:, i], lv["proj"][:, 0], (fh, fw))
+              for i in range(1, len(f))]
+    P = torch.stack([p for p, _ in planes], 1)
+    Q = torch.stack([q for _, q in planes], 1)
+    s = lv["hyp"].contiguous()
+    a = (ref, srcs, P, Q, s, None, "variance")
+    out = sk.fused_cost_volume(*a)
+    err = compare(f"fused_cost_volume CVP {name}", out,
+                  sk.fused_cost_volume_plain(*a))
+    ms = graph_ms(lambda: sk.fused_cost_volume(*a), reps=10)
+    plain_ms = cuda_ms(lambda: sk.fused_cost_volume_plain(*a), reps=2,
+                       warmup=1)
+    share, plain_share, _ = tile_shares(
+        lambda: sk.fused_cost_volume(*a), P, Q, s, (fh, fw),
+        sk.fused_plan(ref.shape[-1], P.shape[1]))
+    (b_ms, b_by), n_live = fused_bound(ref, srcs, P, Q, s, out)
+    D = s.shape[1]
+    shape = (f"{fh}x{fw} D{D} NV{P.shape[1]} C{ref.shape[-1]} "
+             f"{'[D,H,W]' if s.dim() == 4 else '[D]'}")
+    print(f"phase8 fused_cost_volume CVP {name} {shape}: ms {ms:.4f} "
+          f"(CUDA-graph replay) plain_ms {plain_ms:.3f} bound_ms {b_ms:.4f} "
+          f"({b_by}) live samples {n_live}; staged share {share:.4f} (plain "
+          f"rule {plain_share:.4f})", flush=True)
+    return dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                staged_share=share)
+
+
+def phase8_cvp_serving(results):
+    """CVP-MVSNet serving: Predictor(sweep_method="fused", cvp_nscale=5),
+    bf16, random weights (seed 0, prob0 x PROB_GAIN): CVP_REQUESTS requests
+    at 1184x1600 N5, then CVP_REQUESTS at 512x640 N3, 5 fused launches each
+    and no other kernel; each level held to the gather; run_depthmaps; the
+    fused kernel at the coarse and finest eval levels (added to
+    `results`)."""
+    pred = sharpen(Predictor(architecture="cvp_mvsnet", sweep_method="fused",
+                             cvp_nscale=CVP_NSCALE))
+    evals = [dtu_scene(20 + i, **EVAL) for i in range(CVP_REQUESTS)]
+    heads = [dtu_scene(30 + i, **HEADLINE) for i in range(CVP_REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    outs, eval_ms, head_ms = [], [], []
+    for sc in evals:
+        out, ms = request_ms(pred, sc)
+        outs.append(out)
+        eval_ms.append(ms)
+    for sc in heads:
+        out, ms = request_ms(pred, sc)
+        outs.append(out)
+        head_ms.append(ms)
+    counts = sk.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase8 launches {json.dumps(counts)}", flush=True)
+    n_req = 2 * CVP_REQUESTS
+    check(counts == {"sweep_warp": 0, "sweep_warp_backward": 0,
+                     "fused_cost_volume": CVP_NSCALE * n_req,
+                     "sweep_gwc": 0},
+          f"CVP serving did not take {CVP_NSCALE} fused launches a request: "
+          f"{counts}")
+    for out, cfg in zip(outs, [EVAL] * CVP_REQUESTS
+                        + [HEADLINE] * CVP_REQUESTS):
+        check(out["depth"].shape == out["confidence"].shape
+              == (cfg["h"], cfg["w"]) and np.isfinite(out["depth"]).all()
+              and np.isfinite(out["confidence"]).all(), "bad CVP output")
+    steady_eval = [request_ms(pred, evals[i % CVP_REQUESTS])[1]
+                   for i in range(CVP_REQUESTS)]
+    steady_head = [request_ms(pred, heads[i % CVP_REQUESTS])[1]
+                   for i in range(CVP_REQUESTS)]
+    print(f"phase8 CVP serving bf16 fused nscale {CVP_NSCALE}: "
+          f"{EVAL['h']}x{EVAL['w']} N{EVAL['n']} ms per depthmap "
+          f"{[round(t, 3) for t in eval_ms]} then "
+          f"{[round(t, 3) for t in steady_eval]} (median "
+          f"{np.median(steady_eval):.3f}); {HEADLINE['h']}x{HEADLINE['w']} "
+          f"N{HEADLINE['n']} "
+          f"{[round(t, 3) for t in head_ms]} then "
+          f"{[round(t, 3) for t in steady_head]} (median "
+          f"{np.median(steady_head):.3f}); peak memory {peak / 2**30:.3f} "
+          f"GiB; depth mean {outs[0]['depth'].mean():.2f} std "
+          f"{outs[0]['depth'].std():.2f}, confidence mean "
+          f"{outs[0]['confidence'].mean():.3f}", flush=True)
+
+    worst, levels = cvp_agreement(pred, evals[0])
+    results["fused_cost_volume"]["cvp"] = {
+        "coarse": cvp_level_kernel(levels[0], "coarse"),
+        "finest": cvp_level_kernel(levels[-1], "finest")}
+    del levels
+    torch.cuda.empty_cache()
+    prof = profile_step(lambda: pred(*evals[1]), "phase8")
+
+    samples = []
+    for i in range(2):
+        imgs, K, R, t, dmin, dmax = heads[i]
+        samples.append(dict(imgs=imgs, K=K, R=R, t=t, depth_min=dmin,
+                            depth_max=dmax, filename=f"scan4/{i:08d}"))
+    n0 = sk.fused_cost_volume.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        run_depthmaps(samples, pred.model, tmp, cvp_nscale=CVP_NSCALE)
+        files = sorted(p.name for p in Path(tmp).iterdir())
+        check(files == ["finished.txt", "scan4_00000000_out.npz",
+                        "scan4_00000001_out.npz"], f"files {files}")
+        for f in files[1:]:
+            with np.load(Path(tmp) / f) as z:
+                check(z["depthmap"].shape == (HEADLINE["h"], HEADLINE["w"])
+                      and np.isfinite(z["depthmap"]).all(), f"bad {f}")
+    check(sk.fused_cost_volume.launches == n0 + 2 * CVP_NSCALE,
+          "run_depthmaps skipped the fused kernel")
+    print(f"phase8 run_depthmaps: {files}", flush=True)
+    return counts, dict(
+        first_request_ms=eval_ms, request_ms=steady_eval,
+        request_ms_median=float(np.median(steady_eval)),
+        headline_first_request_ms=head_ms, headline_request_ms=steady_head,
+        headline_request_ms_median=float(np.median(steady_head)),
+        peak_gib=peak / 2 ** 30, agreement=worst, **prof)
+
+
+def record_cvp_warps(model, rec: list):
+    """Patch the sweep_warp of models/mvsnet.py (whose sweep_cost_volume
+    CVP shares) so that each call keeps its source, the gradient of its
+    output (g) and of its source (df), and `model`'s cost_volume so that
+    each level keeps its projections and hypotheses. Returns (undo,
+    levels)."""
+    real = mvsnet_module.sweep_warp
+    levels, undo_levels = record_levels(model)
+
+    def recording(src, P, Q, s):
+        out = real(src, P, Q, s)
+        entry = {"src": src.detach(), "level": len(levels)}
+        out.register_hook(lambda g: entry.__setitem__("g", g))
+        src.register_hook(lambda df: entry.__setitem__("df", df))
+        rec.append(entry)
+        return out
+    mvsnet_module.sweep_warp = recording
+
+    def undo():
+        mvsnet_module.sweep_warp = real
+        undo_levels()
+    return undo, levels
+
+
+def cvp_gradient_agreement(rec, levels):
+    """The warp kernel's source-feature gradients (first step) against the
+    exact gather's autograd (plane_sweep_warp in f32) at the same
+    cotangent, at each level and source: max <= 2^-7, mean <= 2^-9 of the
+    gradient's scale."""
+    worst = 0.0
+    n_src = len(rec) // len(levels)
+    for j, e in enumerate(rec):
+        lv = levels[e["level"]]
+        i = j % n_src + 1
+        src = e["src"].float().requires_grad_()
+        hw = tuple(lv["flevel"][0].shape[1:3])
+        warped = plane_sweep_warp(src, lv["proj"][:, i], lv["proj"][:, 0],
+                                  lv["hyp"], hw)
+        (want,) = torch.autograd.grad(warped, src, e["g"].float())
+        err = (e["df"].float() - want).abs()
+        scale = want.abs().max().item()
+        print(f"phase9 feature gradient level {e['level']} source {i}: "
+              f"kernel vs gather max {err.max().item():.6g} mean "
+              f"{err.mean().item():.6g} (scale {scale:.4g})", flush=True)
+        check(scale > 0 and err.max().item() <= 2 ** -7 * scale
+              and err.mean().item() <= 2 ** -9 * scale,
+              f"CVP level {e['level']} source {i}: the kernel's feature "
+              f"gradient disagrees with the gather's")
+        worst = max(worst, err.max().item() / scale)
+    return worst
+
+
+def phase9_cvp_training(dev):
+    """CVP-MVSNet training: TRAIN_STEPS bf16 steps at 512x640 N3, nscale 2,
+    through the warp kernel and its backward (2 levels x 2 sources a
+    step); eval and test steps (fused launches); a checkpoint served by
+    Predictor(sweep_method="fused")."""
+    cfg = TrainConfig(architecture="cvp_mvsnet", dataset="synthetic",
+                      lr=1e-3, train_dtype="bfloat16")
+    ds = SyntheticMVSDataset(num_samples=1, num_views=HEADLINE["n"],
+                             height=HEADLINE["h"], width=HEADLINE["w"])
+    sample = collate([ds[0]])
+    batch = T.batch_to_device(sample, dev)
+    state = T.create_train_state(cfg, dev)
+    params = list(state.model.parameters())
+    check(all(p.dtype == torch.float32 for p in params),
+          "CVP training parameters are not f32")
+    rec = []
+    undo, levels = record_cvp_warps(state.model, rec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = T.train_step(state, batch, cfg)
+        grads_finite = torch.stack([torch.isfinite(p.grad).all()
+                                    for p in params]).all()
+        losses.append(m["train_loss"].item())
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(bool(grads_finite), f"CVP step {i}: a gradient is not finite")
+        if i == 0:
+            undo()
+    counts = sk.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase9 launches {json.dumps(counts)}", flush=True)
+    per_step = state.model.nscale * (HEADLINE["n"] - 1)
+    check(counts == {"sweep_warp": per_step * TRAIN_STEPS,
+                     "sweep_warp_backward": per_step * TRAIN_STEPS,
+                     "fused_cost_volume": 0, "sweep_gwc": 0},
+          f"CVP training did not take the warp kernels: {counts}")
+    check(len(rec) == per_step and len(levels) == state.model.nscale
+          and all("df" in e and "g" in e for e in rec),
+          "the first CVP step's warps were not recorded")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"CVP losses {losses}")
+    steady = float(np.median(times[1:]))
+    print(f"phase9 CVP training 512x640 N3 nscale {state.model.nscale} bf16 "
+          f"(f32 parameters): losses {[round(x, 4) for x in losses]}; ms per "
+          f"step first {times[0]:.3f} then {[round(t, 3) for t in times[1:]]}"
+          f" (median {steady:.3f}); peak memory {peak / 2**30:.3f} GiB",
+          flush=True)
+    grad_err = cvp_gradient_agreement(rec, levels)
+    del rec, levels
+    prof = profile_step(lambda: T.train_step(state, batch, cfg), "phase9")
+
+    n0 = sk.fused_cost_volume.launches
+    val = T.eval_step(state, batch, cfg)["val_loss"].item()
+    test = {k: v.item() for k, v in T.test_step(state, batch, cfg).items()}
+    check(sk.fused_cost_volume.launches == n0 + state.model.nscale + 4,
+          "CVP eval and test steps skipped the fused kernel")
+    check(np.isfinite(val) and all(np.isfinite(list(test.values()))),
+          f"CVP eval {val} test {test}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = save_checkpoint(tmp, 0, state, cfg.architecture)
+        pred = Predictor(ckpt, sweep_method="fused")
+        out = pred(*(sample[k][0] for k in ("imgs", "K", "R", "t",
+                                            "depth_min", "depth_max")))
+    check(out["depth"].shape == (HEADLINE["h"], HEADLINE["w"])
+          and np.isfinite(out["depth"]).all(),
+          "the trained CVP checkpoint served a bad depthmap")
+    print(f"phase9 eval_step val_loss {val:.4f}; test_step {test}; "
+          f"checkpoint served: depth mean {out['depth'].mean():.3f}",
+          flush=True)
+    return counts, dict(
+        losses=losses, first_step_ms=times[0], step_ms_median=steady,
+        step_ms=times, peak_gib=peak / 2 ** 30, val_loss=val, test=test,
+        feature_grad_max_rel_err=grad_err, **prof)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1566,10 +1924,15 @@ def main() -> int:
     vis_counts, vis_serving = phase6_vis_serving()
     torch.cuda.empty_cache()
     vis_train_counts, vis_training = phase7_vis_training(dev)
+    torch.cuda.empty_cache()
+    cvp_counts, cvp_serving = phase8_cvp_serving(kernels)
+    torch.cuda.empty_cache()
+    cvp_train_counts, cvp_training = phase9_cvp_training(dev)
 
     # launches: each path's own, counted from 0 just before its run
     paths = {"mvsnet_serving": counts, "mvsnet_training": train_counts,
-             "vis_serving": vis_counts, "vis_training": vis_train_counts}
+             "vis_serving": vis_counts, "vis_training": vis_train_counts,
+             "cvp_serving": cvp_counts, "cvp_training": cvp_train_counts}
     for name, k in kernels.items():
         k["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         k["launches"] = sum(c[name] for c in paths.values())
@@ -1577,14 +1940,16 @@ def main() -> int:
             "ms", "events_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "staged_share", "launches_by_path"]
     extra = ["device_atomics", "softmin_ms", "views", "vis", "stage1",
-             "stage2"]
+             "stage2", "cvp"]
     for k in kernels.values():
         k.setdefault("staged_share", None)      # kernels without footprints
     print(json.dumps({"kernels": [{k: v[k] for k in keys + extra if k in v}
                                   for v in kernels.values()],
                       "serving": serving, "eval": evals,
                       "training": training, "vis_serving": vis_serving,
-                      "vis_training": vis_training, "card": card}),
+                      "vis_training": vis_training,
+                      "cvp_serving": cvp_serving, "cvp_training": cvp_training,
+                      "card": card}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -327,8 +327,8 @@ def test_train_mode_options_and_unported_paths():
         model.train()(*args)
         assert len(n) == calls
     cfg = TrainConfig(dataset="synthetic", num_depth=8)
-    for bad in (dict(architecture="cvp_mvsnet"), dict(remat=True),
-                dict(hyp_axis="hyp")):
+    for bad in (dict(architecture="cvp_mvsnet", hyp_axis="hyp"),
+                dict(remat=True), dict(hyp_axis="hyp")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.create_model(dataclasses.replace(cfg, **bad), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -387,7 +387,7 @@ def test_predictor_and_run_depthmaps_serve_vis(tmp_path, jax_eval):
 
 def test_unported_paths_and_options_raise():
     args = [torch.from_numpy(a) for a in vis_scene()]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 2"):
         with torch.inference_mode():
             build_model("vis_mvsnet", device="cpu", depth_nums=(8, 4, 4),
                         sweep_method="rect").eval()(*args)

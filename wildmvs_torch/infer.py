@@ -32,17 +32,21 @@ class Predictor:
       model_path: an npz (JAX `save_params_npz`) or torch checkpoint file;
         None for seeded random weights (seed 0; smoke and performance
         runs).
-      architecture: mvsnet | mvsnet-s | vis_mvsnet; read from the
-        checkpoint if None.
+      architecture: mvsnet | mvsnet-s | vis_mvsnet | cvp_mvsnet; read
+        from the checkpoint if None.
       bf16: run the networks in bf16 (default) or f32.
+      cvp_nscale: cvp_mvsnet's pyramid levels (default 4; the reference
+        evaluates DTU at 5 and other scenes at 4, pipeline_utils.py:133-139).
       sweep_method: cost-volume backend (models/mvsnet.py,
-        models/vis_mvsnet.py).
+        models/vis_mvsnet.py, models/cvp_mvsnet.py; cvp_mvsnet needs an
+        explicit "fused" or "gather" until its default, the rectified
+        sweep, is ported).
       device: "cuda" (default; raises without a card) or "cpu".
     """
 
     def __init__(self, model_path: str | Path | None = None,
                  architecture: str | None = None, bf16: bool = True,
-                 sweep_method: str = "auto",
+                 cvp_nscale: int | None = None, sweep_method: str = "auto",
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
         state_dict = None
@@ -61,6 +65,11 @@ class Predictor:
         self.model.eval()
         #: output resolution = input resolution / downscale
         self.downscale = cfg["downscale"]
+        #: forward kwargs of the architecture's eval configuration
+        self.forward_kwargs = {}
+        if architecture == "cvp_mvsnet":
+            self.forward_kwargs["nscale"] = (4 if cvp_nscale is None
+                                             else cvp_nscale)
 
     @staticmethod
     def _crop32(imgs: np.ndarray) -> np.ndarray:
@@ -117,7 +126,8 @@ class Predictor:
         with torch.inference_mode():
             out = self.model(x, prep(K), prep(R), prep(t),
                              prep_range(depth_min), prep_range(depth_max),
-                             reference_frame=reference_frame)
+                             reference_frame=reference_frame,
+                             **self.forward_kwargs)
             depth = out["depth"].float().cpu().numpy()
             conf = out["photometric_confidence"].float().cpu().numpy()
         if not batched:

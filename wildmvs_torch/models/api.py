@@ -37,7 +37,7 @@ def register_model(name: str):
 def build_model(architecture: str, device: str | torch.device | None = None,
                 seed: int = 0, **kwargs):
     """Build a model by the reference's architecture string (mvsnet |
-    mvsnet-s | vis_mvsnet) with seeded random weights, on `device` ("cuda"
+    mvsnet-s | vis_mvsnet | cvp_mvsnet) with seeded random weights, on `device` ("cuda"
     by default; "cpu" only when asked). kwargs go to the model's
     constructor."""
     dev = resolve_device(device)

@@ -23,7 +23,7 @@ Cost-volume backends (`sweep_method`):
   "auto"    for bf16 features on the card "fused" at eval and "warp" in
             train mode, else "gather" (f32 features are not what the
             kernels take; the CPU runs the exact path);
-  "rect"    not ported yet (ROADMAP Queue 1, ops/rect_sweep.py).
+  "rect"    not ported yet (ROADMAP Queue 1, item 2: ops/rect_sweep.py).
 Views of different sizes go through "warp" where "fused" was chosen: the
 warp kernel takes any source size, one launch per source view.
 
@@ -62,6 +62,48 @@ def compute_in(dtype: torch.dtype, weight: torch.Tensor):
     if weight.dtype == dtype:
         return contextlib.nullcontext()
     return torch.autocast(weight.device.type, dtype=dtype)
+
+
+def sweep_cost_volume(ref, srcs, src_projs, ref_proj, depth_values,
+                      method: str, agg: str = "variance", temp=None):
+    """The aggregated cost volume [B, D, H, W, C] of an MVSNet-convention
+    sweep, in the reference features' dtype.
+
+    Args:
+      ref: [B, H, W, C] reference features.
+      srcs: the source views' features, each [B, h_i, w_i, C] ("fused"
+        needs one size).
+      src_projs, ref_proj: [B, 4, 4] projections at feature resolution.
+      depth_values: [B, D] or [B, D, H, W] f32 hypotheses; the kernels take
+        them detached (the sampling grid carries no gradient).
+      method: "gather" | "warp" | "fused" (a model's resolve_sweep).
+      agg: "variance" | "softmin"; temp: softmin's temperature.
+    """
+    fh, fw = ref.shape[1:3]
+
+    def bf16(f):
+        return f.to(torch.bfloat16).contiguous()
+
+    if method == "fused":
+        planes = [mvsnet_planes(p, ref_proj, (fh, fw)) for p in src_projs]
+        return fused_cost_volume(
+            bf16(ref), bf16(torch.stack(srcs, 1)),
+            torch.stack([p for p, _ in planes], 1),
+            torch.stack([q for _, q in planes], 1),
+            depth_values.detach().contiguous(), temp, agg).to(ref.dtype)
+    if method == "warp":
+        s = depth_values.detach().contiguous()
+        fns = [(lambda f=f, p=p: sweep_warp(
+            bf16(f), *mvsnet_planes(p, ref_proj, (fh, fw)), s))
+            for f, p in zip(srcs, src_projs)]
+    else:
+        fns = [(lambda f=f, p=p: plane_sweep_warp(
+            f, p, ref_proj, depth_values, (fh, fw)))
+            for f, p in zip(srcs, src_projs)]
+    if agg == "variance":
+        return variance_cost_volume(ref, warp_fns=fns,
+                                    num_depth=depth_values.shape[1])
+    return softmin_cost_volume(ref, warp_fns=fns, temperature=temp)
 
 
 class FeatureNet(nn.Module):
@@ -180,8 +222,8 @@ class MVSNet(nn.Module):
             method = "warp"
         if method == "rect":
             raise NotImplementedError(
-                "sweep_method='rect' is not ported yet (ROADMAP Queue 1: "
-                "ops/rect_sweep.py)")
+                "sweep_method='rect' is not ported yet (ROADMAP Queue 1, "
+                "item 2: ops/rect_sweep.py)")
         return method
 
     def forward(self, imgs, K, R, t, depth_min, depth_max,
@@ -222,42 +264,14 @@ class MVSNet(nn.Module):
 
         src_idx = [i for i in range(n) if i != reference_frame]
         ref_feature = feats_l[reference_frame]
-        fh, fw = ref_feature.shape[1:3]
-        ref_proj = proj[:, reference_frame]
-        ref_depths = depth_values[:, reference_frame].contiguous()  # [B, D]
-        temp = self.temp if self.agg == "softmin" else None
         method = self.resolve_sweep(ref_feature.dtype, ref_feature.device,
                                     ragged)
-
-        def bf16(f):
-            return f.to(torch.bfloat16).contiguous()
-
-        if method == "fused":
-            planes = [mvsnet_planes(proj[:, i], ref_proj, (fh, fw))
-                      for i in src_idx]
-            cost_volume = fused_cost_volume(
-                bf16(ref_feature),
-                bf16(torch.stack([feats_l[i] for i in src_idx], 1)),
-                torch.stack([p for p, _ in planes], 1),
-                torch.stack([q for _, q in planes], 1),
-                ref_depths, temp, self.agg).to(ref_feature.dtype)
-        else:
-            if method == "warp":
-                fns = [(lambda i=i: sweep_warp(
-                    bf16(feats_l[i]),
-                    *mvsnet_planes(proj[:, i], ref_proj, (fh, fw)),
-                    ref_depths)) for i in src_idx]
-            else:
-                fns = [(lambda i=i: plane_sweep_warp(
-                    feats_l[i], proj[:, i], ref_proj, ref_depths, (fh, fw)))
-                    for i in src_idx]
-            if self.agg == "variance":
-                cost_volume = variance_cost_volume(
-                    ref_feature, warp_fns=fns, num_depth=self.num_depth)
-            else:
-                cost_volume = softmin_cost_volume(ref_feature, warp_fns=fns,
-                                                  temperature=temp)
-
+        ref_depths = depth_values[:, reference_frame].contiguous()  # [B, D]
+        cost_volume = sweep_cost_volume(
+            ref_feature, [feats_l[i] for i in src_idx],
+            [proj[:, i] for i in src_idx], proj[:, reference_frame],
+            ref_depths, method, self.agg,
+            self.temp if self.agg == "softmin" else None)
         cost_reg = self.cost_regularization(cost_volume)[..., 0]
         prob_volume = torch.softmax(cost_reg.float(), dim=1)   # [B, D, H, W]
         depth = depth_regression(prob_volume, ref_depths)

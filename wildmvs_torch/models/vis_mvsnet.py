@@ -43,7 +43,7 @@ Cost-volume backends (`sweep_method`):
             pair (homography_gwc_volume_mosaic, :1570-1643); eval only;
   "auto"    for bf16 features on the card "gwc" at eval and "warp" in
             train mode, else "gather";
-  "rect"    not ported yet (ROADMAP Queue 1 #11).
+  "rect"    not ported yet (ROADMAP Queue 1, item 2).
 The kernels take any source size, so views of different sizes take the
 same backend, one launch per pair.
 
@@ -356,8 +356,8 @@ class VisMVSNet(nn.Module):
                       and feats_dtype == torch.bfloat16 else "gather")
         if method == "rect":
             raise NotImplementedError(
-                "sweep_method='rect' is not ported yet (ROADMAP Queue 1 "
-                "#11: ops/rect_sweep.py)")
+                "sweep_method='rect' is not ported yet (ROADMAP Queue 1, "
+                "item 2: ops/rect_sweep.py)")
         return method
 
     def forward(self, imgs, K, R, t, depth_min, depth_max,

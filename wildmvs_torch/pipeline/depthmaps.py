@@ -19,16 +19,27 @@ def eval_model_kwargs(architecture: str, bf16: bool = True,
     (depth resolution = image resolution / downscale). Inference defaults
     to bf16 networks. vis_mvsnet sweeps (64, 32, 16) hypotheses at interval
     scales (2, 1, 0.5) (reference pipeline_utils.py:142-144; the JAX
-    package's eval_model_kwargs, depthmaps.py:60-74).
+    package's eval_model_kwargs, depthmaps.py:60-74). cvp_mvsnet's depth
+    is at full resolution.
 
-    cvp_mvsnet is not ported yet and raises (ROADMAP Queue 1 #10)."""
-    if architecture not in ("mvsnet", "mvsnet-s", "vis_mvsnet"):
-        raise NotImplementedError(
-            f"{architecture}: the port runs mvsnet, mvsnet-s and vis_mvsnet "
-            f"(cvp_mvsnet is ROADMAP Queue 1 #10)")
+    An explicit sweep_method wins. cvp_mvsnet's "auto" is the rectified
+    sweep in the JAX package (depthmaps.py:50-59), an approximation that is
+    not ported yet, so it raises rather than give other numerics under the
+    same name."""
+    if architecture not in ("mvsnet", "mvsnet-s", "vis_mvsnet",
+                            "cvp_mvsnet"):
+        raise ValueError(f"unknown architecture: {architecture}")
     kwargs = {"sweep_method": sweep_method}
     if bf16:
         kwargs["dtype"] = torch.bfloat16
+    if architecture == "cvp_mvsnet":
+        if sweep_method == "auto":
+            raise NotImplementedError(
+                "cvp_mvsnet's eval default sweep_method 'auto' is the "
+                "rectified sweep, which is not ported yet (ROADMAP Queue 1, "
+                "item 2); pass sweep_method='fused' (exact, the kernel) or "
+                "'gather' (exact, plain PyTorch)")
+        return {"kwargs": kwargs, "downscale": 1}
     if architecture == "vis_mvsnet":
         kwargs.update(depth_nums=(64, 32, 16),
                       interval_scales=(2.0, 1.0, 0.5))
@@ -37,14 +48,16 @@ def eval_model_kwargs(architecture: str, bf16: bool = True,
 
 
 def run_depthmaps(dataset, model: torch.nn.Module, out_dir: str | Path,
-                  override: bool = False):
+                  override: bool = False, cvp_nscale: int | None = None):
     """Run the eval forward for every reference view and cache npz outputs.
 
     `dataset` is anything with len() and [i] that yields the eval sample
     dict: imgs [N, H, W, 3] (or a list of per-view [Hi, Wi, 3]), K, R, t,
     depth_min, depth_max (numpy or tensors, no batch axis) and filename.
-    The model runs on the device its parameters are on. (The JAX
-    package's multi-host sharding of the view list is not ported yet.)
+    The model runs on the device its parameters are on; `cvp_nscale`, if
+    given, goes to the forward as `nscale` (cvp_mvsnet's pyramid levels).
+    (The JAX package's multi-host sharding of the view list is not ported
+    yet, ROADMAP Queue 1, item 6.)
     """
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -52,6 +65,7 @@ def run_depthmaps(dataset, model: torch.nn.Module, out_dir: str | Path,
         return
     device = next(model.parameters()).device
     model.eval()
+    extra = {} if cvp_nscale is None else {"nscale": cvp_nscale}
 
     def batch1(x):
         return torch.as_tensor(np.array(x, np.float32), device=device)[None]
@@ -67,7 +81,8 @@ def run_depthmaps(dataset, model: torch.nn.Module, out_dir: str | Path,
                 else batch1(imgs))
         with torch.inference_mode():
             out = model(imgs, *(batch1(sample[k]) for k in
-                                ("K", "R", "t", "depth_min", "depth_max")))
+                                ("K", "R", "t", "depth_min", "depth_max")),
+                        **extra)
         np.savez_compressed(
             out_file,
             depthmap=out["depth"][0].float().cpu().numpy(),

@@ -1,20 +1,23 @@
 """Training CLI: the epoch loop on one card.
 
 Counterpart of wildmvs/train/cli.py:97-340 (reference train.py:64-252) for
-MVSNet and Vis-MVSNet supervised training on the synthetic dataset:
+MVSNet, Vis-MVSNet and CVP-MVSNet supervised training on the synthetic
+dataset:
 
   python -m wildmvs_torch.train.cli --dataset synthetic --num_depth 16 --debug
   python -m wildmvs_torch.train.cli --device cpu --dataset synthetic \
       --num_depth 16 --debug
   python -m wildmvs_torch.train.cli --device cpu --dataset synthetic \
       --architecture vis_mvsnet --debug
+  python -m wildmvs_torch.train.cli --device cpu --dataset synthetic \
+      --architecture cvp_mvsnet --debug
 
 Runs on "cuda" unless `--device cpu` is given. Each epoch trains, writes
 `<logdir>/model_{epoch:06d}.ckpt` every `--save_freq` epochs, then runs the
 validation loss and the test metrics; scalar logs go to `<logdir>/logs.txt`.
 Not ported yet, and raising NotImplementedError with their ROADMAP item:
---architecture cvp_mvsnet, real datasets (dtu, md, blended), --unsupervised
-and --occ_masking, --world_size > 1, --remat and --trace.
+real datasets (dtu, md, blended), --unsupervised and --occ_masking,
+--world_size > 1, --remat and --trace.
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ def build_datasets(config: TrainConfig):
     if config.dataset != "synthetic":
         raise NotImplementedError(
             f"--dataset {config.dataset}: the port's data loaders are not "
-            f"ported yet (ROADMAP Queue 1 #8); use --dataset synthetic")
+            f"ported yet (ROADMAP Queue 1, item 4); use --dataset "
+            f"synthetic")
     n = config.num_im_train
     return (SyntheticMVSDataset(num_samples=8, num_views=n, seed=1),
             SyntheticMVSDataset(num_samples=2, num_views=n, seed=2),
@@ -141,8 +145,8 @@ def main(argv=None):
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--num_im_train", type=int, default=3)
     p.add_argument("--num_depth", type=int, default=192,
-                   help="hypotheses of mvsnet and mvsnet-s (vis_mvsnet sweeps "
-                        "its own per-stage counts)")
+                   help="hypotheses of mvsnet and mvsnet-s (vis_mvsnet and "
+                        "cvp_mvsnet sweep their own per-level counts)")
     p.add_argument("--occ_masking", action="store_true")
     sup = p.add_mutually_exclusive_group()
     sup.add_argument("--supervised", dest="supervised", action="store_true")
@@ -160,6 +164,12 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--world_size", type=int, default=1)
     p.add_argument("--remat", action="store_true")
+    p.add_argument("--remat_levels", action="store_true",
+                   help="cvp_mvsnet: recompute each pyramid level's cost "
+                        "volume and regularizer in the backward")
+    p.add_argument("--packed_training", action="store_true",
+                   help="cvp_mvsnet: accepted; the port's regularizer is "
+                        "unpacked either way (same math)")
     p.add_argument("--bf16", action="store_true",
                    help="bf16 network compute (f32 parameters, optimizer "
                         "state and loss)")
@@ -172,15 +182,15 @@ def main(argv=None):
     if not a.supervised or a.occ_masking:
         raise NotImplementedError(
             "unsupervised and occlusion-masked training are not ported yet "
-            "(ROADMAP Queue 1 #12)")
+            "(ROADMAP Queue 1, item 5)")
     if a.world_size > 1:
         raise NotImplementedError(
             "--world_size > 1 (torch.distributed training) is not ported "
-            "yet (ROADMAP Queue 1 #12)")
+            "yet (ROADMAP Queue 1, item 5)")
     if a.trace:
         raise NotImplementedError(
             "--trace (torch.profiler capture) is not ported yet (ROADMAP "
-            "Queue 1 #14)")
+            "Queue 1, item 7)")
     config = TrainConfig(
         architecture=a.architecture, dataset=a.dataset,
         supervised=a.supervised, occ_masking=a.occ_masking,
@@ -188,7 +198,8 @@ def main(argv=None):
         epochs=a.epochs, lr=a.lr, lrepochs=a.lrepochs, weight_decay=a.wd,
         seed=a.seed, save_freq=a.save_freq, print_every=a.print_every,
         logdir=a.logdir, debug=a.debug, num_depth=a.num_depth,
-        train_dtype="bfloat16" if a.bf16 else "float32", remat=a.remat)
+        train_dtype="bfloat16" if a.bf16 else "float32", remat=a.remat,
+        remat_levels=a.remat_levels, packed_training=a.packed_training)
     return run(config, resume=a.resume, loadckpt=a.loadckpt,
                device=a.device)
 

@@ -14,7 +14,8 @@ from typing import Tuple
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    architecture: str = "mvsnet"       # mvsnet | mvsnet-s | vis_mvsnet
+    architecture: str = "mvsnet"       # mvsnet | mvsnet-s | vis_mvsnet |
+                                       # cvp_mvsnet
     dataset: str = "dtu"               # dtu | md | blended | synthetic
     supervised: bool = True
     occ_masking: bool = False

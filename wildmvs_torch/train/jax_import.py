@@ -19,7 +19,10 @@ Path rules (flax module names mirror the reference's):
   2D <m>/conv/kernel     -> <m>.weight         (flax nests nn.Conv as "conv")
   3D <m>/kernel          -> <m>.weight
   temp                   -> temp
-and then Vis-MVSNet's module names become the reference's (`_VIS_RULES`):
+and then the module names become the reference's (`_RULES`). CVP-MVSNet:
+feature_pyramid/<conv> -> featurePyramid.<conv>.0 (a Sequential(Conv2d,
+LeakyReLU), net.py:21-47; its regularizer's keys are the generic ones).
+Vis-MVSNet:
   UNet enc<i>/block<j> -> enc_blocks.<prefix><scale>_<i>.<j>,
   dec<i>_deconv / dec<i>_conv / dec<i>_res/block<j> ->
   dec_blocks.<prefix><scale>_<i>.0 / .1 / .2.<j> (prefix and scales of the
@@ -62,7 +65,8 @@ def _unet_key(m: re.Match) -> str:
 
 
 # generic key -> reference key, in order
-_VIS_RULES = [
+_RULES = [
+    (re.compile(r"^\.feature_pyramid\.(conv\w+)\."), r".featurePyramid.\1.0."),
     (re.compile(r"(?<=\.)(feat_ext|reg|reg_fuse)\.unet\.(enc|dec)(\d+)"
                 r"(_deconv|_conv|_res)?\."), _unet_key),
     (re.compile(r"\.block(\d+)\.conv([12])\.conv\."), r".\1.conv\2."),
@@ -77,9 +81,9 @@ _VIS_RULES = [
 ]
 
 
-def _vis_key(key: str) -> str:
+def _reference_key(key: str) -> str:
     key = "." + key                   # every module name after a dot
-    for pat, repl in _VIS_RULES:
+    for pat, repl in _RULES:
         key = pat.sub(repl, key)
     return key[1:]
 
@@ -127,7 +131,7 @@ def state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
         else:
             key = mods + [leaf]
         sd[".".join(key)] = torch.from_numpy(np.ascontiguousarray(val))
-    return {_vis_key(k): v for k, v in sd.items()}
+    return {_reference_key(k): v for k, v in sd.items()}
 
 
 def load_params_npz(path: str | Path):
@@ -157,13 +161,13 @@ def load_weights(path: str | Path):
     "architecture": ...} or a bare state_dict; the DDP "module." prefix and
     the Vis-MVSNet Frontend's "model." prefix are dropped), whose keys are
     the port's already. Orbax directories are not
-    read yet (ROADMAP Queue 1 #7).
+    read yet (ROADMAP Queue 1, item 7).
     """
     path = Path(path)
     if path.is_dir():
         raise NotImplementedError(
             f"{path} is a directory (an orbax checkpoint); the port reads "
-            f"npz and torch checkpoints only (ROADMAP Queue 1 #7)")
+            f"npz and torch checkpoints only (ROADMAP Queue 1, item 7)")
     if path.suffix == ".npz":
         params, stats, meta = load_params_npz(path)
         return state_dict_from_jax(params, stats), meta.get("architecture")

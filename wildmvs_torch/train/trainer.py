@@ -7,8 +7,9 @@ TrainState become eager steps over a `TrainState` holding the model, its
 optimizer and the step count; the model keeps its BatchNorm statistics as
 buffers, updated by the train-mode forward.
 
-Architectures: mvsnet, mvsnet-s (num_depth hypotheses) and vis_mvsnet
-(the JAX defaults: depth_nums (32, 16, 8), interval_scales (4, 2, 1)).
+Architectures: mvsnet, mvsnet-s (num_depth hypotheses), vis_mvsnet (the
+JAX defaults: depth_nums (32, 16, 8), interval_scales (4, 2, 1)) and
+cvp_mvsnet (2 pyramid levels in training, 4 at test off DTU).
 
 Precision: parameters, BatchNorm statistics, optimizer state and the loss
 are f32. With train_dtype="bfloat16" the model is built with bf16 compute
@@ -34,7 +35,7 @@ from ..models import build_model
 from .config import TrainConfig
 from .metrics import depth_metrics
 
-ARCHITECTURES = ("mvsnet", "mvsnet-s", "vis_mvsnet")
+ARCHITECTURES = ("mvsnet", "mvsnet-s", "vis_mvsnet", "cvp_mvsnet")
 #: vis_mvsnet's test-time sweep (reference models/trainer.py:290-296),
 #: passed as forward kwargs
 VIS_TEST_KWARGS = {"depth_nums": (64, 32, 16),
@@ -53,20 +54,20 @@ def create_model(config: TrainConfig, device=None) -> torch.nn.Module:
     """The training model of `config` with seeded random weights (seed
     `config.seed`), on `device` ("cuda" unless "cpu" is asked for)."""
     if config.architecture not in ARCHITECTURES:
+        raise ValueError(f"unknown architecture: {config.architecture}")
+    if config.remat:
         raise NotImplementedError(
-            f"{config.architecture}: the port trains mvsnet, mvsnet-s and "
-            f"vis_mvsnet (cvp_mvsnet is ROADMAP Queue 1 #10)")
-    for flag in ("remat", "remat_levels", "packed_training"):
-        if getattr(config, flag):
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP Queue 1 #8)")
+            "remat is not ported yet (ROADMAP Queue 1, item 7)")
     if config.hyp_axis is not None:
         raise NotImplementedError(
             "hyp_axis (depth-slab sharding) is not ported yet (ROADMAP "
-            "Queue 1 #12)")
+            "Queue 1, item 5)")
     kwargs = {"batched_bn": config.batched_bn}
     if config.architecture.startswith("mvsnet"):
         kwargs["num_depth"] = config.num_depth
+    if config.architecture == "cvp_mvsnet":
+        kwargs.update(remat_levels=config.remat_levels,
+                      packed_training=config.packed_training)
     if config.train_dtype == "bfloat16":
         kwargs.update(dtype=torch.bfloat16, param_dtype=torch.float32)
     elif config.train_dtype != "float32":
@@ -135,7 +136,7 @@ def loss_from_outputs(outputs: dict, batch: dict, config: TrainConfig,
     if not config.supervised:
         raise NotImplementedError(
             "unsupervised (photometric) training is not ported yet "
-            "(ROADMAP Queue 1 #12)")
+            "(ROADMAP Queue 1, item 5)")
     n = batch["imgs"].shape[1]
     loss = batch["imgs"].new_zeros(())
 
@@ -170,7 +171,7 @@ def train_step(state: TrainState, batch: dict, config: TrainConfig):
     "depth_est"}) as device tensors."""
     if config.occ_masking:
         raise NotImplementedError(
-            "occ_masking is not ported yet (ROADMAP Queue 1 #12)")
+            "occ_masking is not ported yet (ROADMAP Queue 1, item 5)")
     model = state.model
     model.train()
     state.optimizer.zero_grad(set_to_none=True)
@@ -198,11 +199,16 @@ def test_step(state: TrainState, batch: dict, config: TrainConfig) -> dict:
     """Depth metrics against GT at full resolution (reference
     models/trainer.py:280-321). vis_mvsnet sweeps VIS_TEST_KWARGS, given
     as forward kwargs as the JAX trainer gives them (trainer.py:290-296),
-    so its slabs re-centre with the module's interval_scales; mvsnet has
-    no test-time override."""
+    so its slabs re-centre with the module's interval_scales; cvp_mvsnet
+    takes 4 pyramid levels off DTU (trainer.py:292-293); mvsnet has no
+    test-time override."""
     model = state.model
     model.eval()
-    kwargs = VIS_TEST_KWARGS if config.architecture == "vis_mvsnet" else {}
+    kwargs = {}
+    if config.architecture == "vis_mvsnet":
+        kwargs = VIS_TEST_KWARGS
+    elif config.architecture == "cvp_mvsnet" and config.dataset != "dtu":
+        kwargs = {"nscale": 4}
     out = model(batch["imgs"], batch["K"], batch["R"], batch["t"],
                 batch["depth_min"], batch["depth_max"], **kwargs)
     gt = batch["depth"]

@@ -2,7 +2,7 @@
 
 Counterpart of the scalar part of wildmvs/utils/monitor.py (`MeterSet`,
 `Logger.log`; reference utils/monitor.py:23-45, utils/trainer.py:18-48).
-Image panels are not ported yet (ROADMAP Queue 1 #8).
+Image panels are not ported yet (ROADMAP Queue 1, item 7).
 """
 from __future__ import annotations
 
