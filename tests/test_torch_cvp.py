@@ -510,10 +510,15 @@ def test_train_mode_and_unported_options():
         model.eval()(*args)
     hook.remove()
     assert seen == [48, 8, 96, 8]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 2"):
-        with torch.no_grad():
-            build_model("cvp_mvsnet", device="cpu",
-                        sweep_method="rect").eval()(*args)
+    # "rect" is ported (tests/test_torch_rect.py holds it to JAX): it
+    # serves at eval, and resolves as "auto" in train mode or when ragged
+    rect = build_model("cvp_mvsnet", device="cpu", sweep_method="rect")
+    with torch.no_grad():
+        assert torch.isfinite(rect.eval()(*args)["depth"]).all()
+    assert rect.resolve_sweep(torch.bfloat16, torch.device("cuda"),
+                              True) == "warp"
+    assert rect.train().resolve_sweep(torch.float32, torch.device("cpu"),
+                                      False) == "gather"
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 5"):
         build_model("cvp_mvsnet", device="cpu", hyp_axis="hyp")
     cfg = TrainConfig(architecture="cvp_mvsnet", dataset="synthetic")
@@ -554,14 +559,17 @@ def test_predictor_and_run_depthmaps_serve_cvp(tmp_path, jax_cvp,
 
 
 def test_eval_model_kwargs_cvp():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 2"):
-        eval_model_kwargs("cvp_mvsnet")
+    # the eval default "auto" is the rectified sweep, as in the JAX package
+    assert eval_model_kwargs("cvp_mvsnet") == {
+        "kwargs": {"sweep_method": "rect", "dtype": torch.bfloat16},
+        "downscale": 1}
     for method in ("fused", "gather"):
         cfg = eval_model_kwargs("cvp_mvsnet", sweep_method=method)
         assert cfg == {"kwargs": {"sweep_method": method,
                                   "dtype": torch.bfloat16}, "downscale": 1}
-    with pytest.raises(NotImplementedError, match="fused"):
-        Predictor(architecture="cvp_mvsnet", device="cpu")
+    pred = Predictor(architecture="cvp_mvsnet", device="cpu")
+    assert pred.model.sweep_method == "rect"
+    assert pred.forward_kwargs == {"nscale": 4}
 
 
 def test_cli_trains_cvp(tmp_path):

@@ -136,8 +136,8 @@ def test_checkpoint_formats(tmp_path, variance_weights):
                                    atol=0)
     with pytest.raises(NotImplementedError, match="orbax"):
         Predictor(tmp_path, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eval_model_kwargs("cvp_mvsnet")
+    assert eval_model_kwargs("cvp_mvsnet")["kwargs"]["sweep_method"] == \
+        "rect"
     with pytest.raises(ValueError, match="architecture"):
         Predictor(device="cpu")
 

@@ -247,11 +247,20 @@ def test_unported_paths_raise(variables):
     params, stats = variables
     args = [torch.from_numpy(a) for a in scene()]
     model = port_model(params, stats, sweep_method="rect")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        with torch.inference_mode():
-            model(*args)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.train()(*args)
+    # "rect" is ported (tests/test_torch_rect.py holds it to JAX): it
+    # serves at eval, and in train mode or with views of different sizes
+    # it resolves as "auto"
+    with torch.inference_mode():
+        assert torch.isfinite(model(*args)["depth"]).all()
+    assert torch.isfinite(model.train()(*args)["depth"]).all()
+    for training, ragged, dev, dtype, want in (
+            (True, False, "cpu", torch.float32, "gather"),
+            (True, False, "cuda", torch.bfloat16, "warp"),
+            (False, True, "cuda", torch.bfloat16, "warp"),
+            (False, False, "cuda", torch.bfloat16, "rect"),
+            (False, False, "cpu", torch.float32, "rect")):
+        model.train(training)
+        assert model.resolve_sweep(dtype, torch.device(dev), ragged) == want
     with pytest.raises(ValueError, match="sweep_method"):
         build_model("mvsnet", device="cpu", sweep_method="mosaic")
     with pytest.raises(ValueError, match="/32"):

@@ -299,6 +299,17 @@ def test_fusion_modes_match_jax_single_stage(mode, ragged):
                                    atol=1e-4 * max(1.0, np.abs(uw).max()))
 
 
+def keep_first(store: dict, key):
+    """A forward (pre-)hook that keeps the first call's inputs (or output)
+    under `key` and returns None, so that it changes nothing: a later call
+    of the module, on the kept inputs, neither overwrites them nor gets
+    them back in place of its own result."""
+    def hook(module, *args):
+        if key not in store:
+            store[key] = args[-1]
+    return hook
+
+
 def stage_forced(model, args, method):
     """Run `model` with `method`, then each stage again through the exact
     gather on the very inputs that stage received (features, cameras and
@@ -313,9 +324,9 @@ def stage_forced(model, args, method):
         st = getattr(model, f"stage{i}")
         hooks += [
             st.register_forward_pre_hook(
-                lambda m, a, i=i: inputs.__setitem__(i, a)),
+                keep_first(inputs, i)),
             st.register_forward_hook(
-                lambda m, a, o, i=i: outputs.__setitem__(i, o)),
+                keep_first(outputs, i)),
             st.reg.register_forward_pre_hook(
                 lambda m, a, i=i: costs.setdefault(i, []).append(
                     a[0].float()))]
@@ -387,10 +398,15 @@ def test_predictor_and_run_depthmaps_serve_vis(tmp_path, jax_eval):
 
 def test_unported_paths_and_options_raise():
     args = [torch.from_numpy(a) for a in vis_scene()]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 2"):
-        with torch.inference_mode():
-            build_model("vis_mvsnet", device="cpu", depth_nums=(8, 4, 4),
-                        sweep_method="rect").eval()(*args)
+    # "rect" is ported (tests/test_torch_rect.py holds it to JAX): it
+    # serves at eval and resolves as "auto" in train mode
+    rect = build_model("vis_mvsnet", device="cpu", depth_nums=(8, 4, 4),
+                       sweep_method="rect").eval()
+    with torch.inference_mode():
+        assert torch.isfinite(rect(*args)["depth"]).all()
+    assert rect.resolve_sweep(torch.float32, torch.device("cpu")) == "rect"
+    assert rect.train().resolve_sweep(torch.bfloat16,
+                                      torch.device("cuda")) == "warp"
     model = build_model("vis_mvsnet", device="cpu", depth_nums=(8, 4, 4),
                         sweep_method="gwc")
     with pytest.raises(ValueError, match="eval only"):

@@ -1,10 +1,12 @@
 """Synthetic multi-view dataset: coherent renders with exact GT depth.
 
-The port's own numpy copy of wildmvs/data/synthetic.py:14-166 (the same
+The port's own numpy copy of wildmvs/data/synthetic.py:14-222 (the same
 seeds give the same arrays). Each sample is a tilted textured plane
 rendered into N pinhole views, so the plane sweep and the supervised loss
-behave as on real data, with no files. `render_rig_plane` renders such a
-plane into any world-frame rig (the DTU-like eval rig of chip_smoke.py).
+behave as on real data, with no files. `SyntheticSceneDataset` is one such
+scene under the eval-dataset contract (every view a reference in turn),
+for the reconstruction pipeline. `render_rig_plane` renders such a plane
+into any world-frame rig (the DTU-like eval rig of chip_smoke.py).
 """
 from __future__ import annotations
 
@@ -112,6 +114,60 @@ class SyntheticMVSDataset:
             "depth_min": depth_min, "depth_max": depth_max,
             "depth": ref_depth, "mask": mask,
             "filename": f"synthetic/{idx:08d}",
+        }
+
+
+class SyntheticSceneDataset:
+    """One coherent scene rendered from V views; sample i is reference view
+    i with the other views as sources, under the eval-dataset contract
+    (imgs, K, R, t, depth_min/max, depth, mask, filename, src_filenames)."""
+
+    def __init__(self, num_views: int = 5, height: int = 64, width: int = 96,
+                 seed: int = 0, z_range: tuple = (2.0, 6.0)):
+        base = SyntheticMVSDataset(num_samples=1, num_views=num_views,
+                                   height=height, width=width, seed=seed,
+                                   z_range=z_range)
+        self.num_views = num_views
+        sample0 = base[0]
+        self.imgs = sample0["imgs"]
+        self.K, self.R, self.t = sample0["K"], sample0["R"], sample0["t"]
+        self.z_range = z_range
+        # per-view GT depth: each view's rays against the same plane
+        rng = np.random.default_rng(seed * 100003)
+        z0 = rng.uniform(z_range[0] + 1.0, z_range[1] - 1.0)
+        a, b = rng.uniform(-0.15, 0.15, 2)
+        h, w = self.imgs.shape[1:3]
+        ys, xs = np.meshgrid(np.arange(h, dtype=np.float32),
+                             np.arange(w, dtype=np.float32), indexing="ij")
+        pix = np.stack([xs, ys, np.ones_like(xs)], -1)
+        self.depths = []
+        for i in range(num_views):
+            rays_world = (pix @ np.linalg.inv(self.K[i]).T) @ self.R[i]
+            center = (-self.R[i].T @ self.t[i])[:, 0]
+            denom = (rays_world[..., 2] - a * rays_world[..., 0]
+                     - b * rays_world[..., 1])
+            num = z0 + a * center[0] + b * center[1] - center[2]
+            lam = num / np.where(np.abs(denom) < 1e-6, 1e-6, denom)
+            pts = center + rays_world * lam[..., None]
+            cam_pts = pts @ self.R[i].T + self.t[i][:, 0]
+            self.depths.append(cam_pts[..., 2].astype(np.float32))
+
+    def __len__(self):
+        return self.num_views
+
+    def __getitem__(self, idx: int) -> dict:
+        order = [idx] + [i for i in range(self.num_views) if i != idx]
+        depth = self.depths[idx]
+        mask = (depth >= self.z_range[0]) & (depth <= self.z_range[1])
+        n = self.num_views
+        return {
+            "imgs": self.imgs[order],
+            "K": self.K[order], "R": self.R[order], "t": self.t[order],
+            "depth_min": np.full((n,), self.z_range[0], np.float32),
+            "depth_max": np.full((n,), self.z_range[1], np.float32),
+            "depth": depth, "mask": mask.astype(np.float32),
+            "filename": f"view_{idx:04d}",
+            "src_filenames": [f"view_{i:04d}" for i in order[1:]],
         }
 
 

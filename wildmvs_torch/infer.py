@@ -38,9 +38,9 @@ class Predictor:
       cvp_nscale: cvp_mvsnet's pyramid levels (default 4; the reference
         evaluates DTU at 5 and other scenes at 4, pipeline_utils.py:133-139).
       sweep_method: cost-volume backend (models/mvsnet.py,
-        models/vis_mvsnet.py, models/cvp_mvsnet.py; cvp_mvsnet needs an
-        explicit "fused" or "gather" until its default, the rectified
-        sweep, is ported).
+        models/vis_mvsnet.py, models/cvp_mvsnet.py); "auto" is each
+        architecture's eval default (`eval_model_kwargs`: the rectified
+        sweep "rect" for cvp_mvsnet).
       device: "cuda" (default; raises without a card) or "cpu".
     """
 

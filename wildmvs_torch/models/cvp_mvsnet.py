@@ -29,7 +29,13 @@ Cost-volume backends (`sweep_method`), per level:
             variance_volume_mosaic_px, :357-372); eval only;
   "auto"    for bf16 features on the card "fused" at eval and "warp" in
             train mode, else "gather";
-  "rect"    not ported yet (ROADMAP Queue 1, item 2).
+  "rect"    the rectified sweep (ops/rect_sweep.py) at every level, the
+            coarse [D] sweep and the per-pixel refinement maps: one
+            canvas resample and one `fused_cost_volume` launch a level,
+            the exact "fused" volume per batch element where coverage
+            fails; eval with views of one size, else it resolves as
+            "auto" (cvp_mvsnet.py:355-367). The pipeline's eval default
+            (pipeline/depthmaps.py).
 Views of different sizes take "warp" where "fused" was chosen.
 
 The hypotheses keep their gradient: the regression's depth flows back
@@ -246,16 +252,14 @@ class CVPMVSNet(nn.Module):
             raise ValueError(
                 "sweep_method='fused' is eval only (fused_cost_volume has "
                 "no backward); train through 'warp', 'gather' or 'auto'")
+        if method == "rect" and (self.training or ragged):
+            method = "auto"       # the JAX package's fall-through
         if method == "auto":
             kernel = "warp" if self.training else "fused"
             method = (kernel if device.type == "cuda"
                       and feats_dtype == torch.bfloat16 else "gather")
         if method == "fused" and ragged:
             method = "warp"
-        if method == "rect":
-            raise NotImplementedError(
-                "sweep_method='rect' is not ported yet (ROADMAP Queue 1, "
-                "item 2: ops/rect_sweep.py)")
         return method
 
     def cost_volume(self, flevel, proj, hyp, method: str) -> torch.Tensor:
@@ -265,7 +269,7 @@ class CVPMVSNet(nn.Module):
           flevel: the level's features, reference first ([B, h_i, w_i, C]).
           proj: [B, N, 4, 4] projections at the level, reference first.
           hyp: [B, D] or [B, D, H, W] f32 hypotheses.
-          method: "gather" | "warp" | "fused" (`resolve_sweep`).
+          method: "gather" | "warp" | "fused" | "rect" (`resolve_sweep`).
         """
         return sweep_cost_volume(flevel[0], flevel[1:],
                                  [proj[:, i] for i in range(1, len(flevel))],

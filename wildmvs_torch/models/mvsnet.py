@@ -23,7 +23,12 @@ Cost-volume backends (`sweep_method`):
   "auto"    for bf16 features on the card "fused" at eval and "warp" in
             train mode, else "gather" (f32 features are not what the
             kernels take; the CPU runs the exact path);
-  "rect"    not ported yet (ROADMAP Queue 1, item 2: ops/rect_sweep.py).
+  "rect"    the rectified sweep (ops/rect_sweep.py): each source resampled
+            once onto a canvas, then one `fused_cost_volume` launch on the
+            canvases (per batch element, the exact "fused" volume where
+            the coverage probe fails); eval with views of one size, else
+            (training, ragged views) it resolves as "auto" (the JAX
+            package's gates, mvsnet.py:235-247).
 Views of different sizes go through "warp" where "fused" was chosen: the
 warp kernel takes any source size, one launch per source view.
 
@@ -47,7 +52,8 @@ from ..geometry.projective import build_proj_matrices, scale_K
 from ..nn.blocks import (ConvBnReLU, ConvTransposeBnReLU, cast_convs,
                          init_weights)
 from ..ops.plane_sweep import plane_sweep_warp
-from ..ops.sweep_kernels import fused_cost_volume, mvsnet_planes, sweep_warp
+from ..ops.rect_sweep import exact_fused_volume, rect_cost_volume
+from ..ops.sweep_kernels import mvsnet_planes, sweep_warp
 from ..ops.volumes import (depth_regression, photometric_confidence,
                            softmin_cost_volume, variance_cost_volume)
 from .api import register_model, view_list
@@ -72,11 +78,12 @@ def sweep_cost_volume(ref, srcs, src_projs, ref_proj, depth_values,
     Args:
       ref: [B, H, W, C] reference features.
       srcs: the source views' features, each [B, h_i, w_i, C] ("fused"
-        needs one size).
+        and "rect" need one size).
       src_projs, ref_proj: [B, 4, 4] projections at feature resolution.
       depth_values: [B, D] or [B, D, H, W] f32 hypotheses; the kernels take
         them detached (the sampling grid carries no gradient).
-      method: "gather" | "warp" | "fused" (a model's resolve_sweep).
+      method: "gather" | "warp" | "fused" | "rect" (a model's
+        resolve_sweep).
       agg: "variance" | "softmin"; temp: softmin's temperature.
     """
     fh, fw = ref.shape[1:3]
@@ -85,12 +92,13 @@ def sweep_cost_volume(ref, srcs, src_projs, ref_proj, depth_values,
         return f.to(torch.bfloat16).contiguous()
 
     if method == "fused":
-        planes = [mvsnet_planes(p, ref_proj, (fh, fw)) for p in src_projs]
-        return fused_cost_volume(
-            bf16(ref), bf16(torch.stack(srcs, 1)),
-            torch.stack([p for p, _ in planes], 1),
-            torch.stack([q for _, q in planes], 1),
+        return exact_fused_volume(
+            bf16(ref), bf16(torch.stack(srcs, 1)), src_projs, ref_proj,
             depth_values.detach().contiguous(), temp, agg).to(ref.dtype)
+    if method == "rect":
+        return rect_cost_volume(
+            [ref] + list(srcs), torch.stack([ref_proj] + list(src_projs), 1),
+            depth_values.detach(), (fh, fw), agg, temp)
     if method == "warp":
         s = depth_values.detach().contiguous()
         fns = [(lambda f=f, p=p: sweep_warp(
@@ -214,16 +222,14 @@ class MVSNet(nn.Module):
             raise ValueError(
                 "sweep_method='fused' is eval only (fused_cost_volume has "
                 "no backward); train through 'warp', 'gather' or 'auto'")
+        if method == "rect" and (self.training or ragged):
+            method = "auto"       # the JAX package's fall-through
         if method == "auto":
             kernel = "warp" if self.training else "fused"
             method = (kernel if device.type == "cuda"
                       and feats_dtype == torch.bfloat16 else "gather")
         if method == "fused" and ragged:
             method = "warp"
-        if method == "rect":
-            raise NotImplementedError(
-                "sweep_method='rect' is not ported yet (ROADMAP Queue 1, "
-                "item 2: ops/rect_sweep.py)")
         return method
 
     def forward(self, imgs, K, R, t, depth_min, depth_max,

@@ -43,7 +43,13 @@ Cost-volume backends (`sweep_method`):
             pair (homography_gwc_volume_mosaic, :1570-1643); eval only;
   "auto"    for bf16 features on the card "gwc" at eval and "warp" in
             train mode, else "gather";
-  "rect"    not ported yet (ROADMAP Queue 1, item 2).
+  "rect"    the rectified sweep (ops/rect_sweep.py): each stage resamples
+            every source once onto a canvas, then one `sweep_gwc` launch
+            per pair on the canvas; eval only, where the stage's sources
+            share one size of at least 21 px (the JAX package's gate,
+            vis_mvsnet.py:233-262), else the exact "gwc" path; per batch
+            element, a pair whose coverage probe fails takes the exact
+            path. In train mode "rect" trains as "auto" does.
 The kernels take any source size, so views of different sizes take the
 same backend, one launch per pair.
 
@@ -62,8 +68,8 @@ from ..geometry.projective import scale_K
 from ..losses.supervised import resize_bilinear
 from ..nn.blocks import UNet, cast_convs, init_weights
 from ..ops.plane_sweep import homography_sweep_warp
-from ..ops.sweep_kernels import (GWC_GROUPS, inverse_depths, sweep_gwc,
-                                 sweep_warp, vis_planes)
+from ..ops.rect_sweep import exact_gwc_volume, rect_gwc_volume
+from ..ops.sweep_kernels import GWC_GROUPS, sweep_warp, vis_planes, vis_svals
 from ..ops.volumes import entropy, groupwise_correlation, soft_argmin
 from .api import register_model, view_list
 from .mvsnet import compute_in
@@ -209,29 +215,37 @@ class SingleStage(nn.Module):
         n_src = len(srcs_feat)
         dtype = ref_feat.dtype
 
+        uniform = all(s.shape == srcs_feat[0].shape for s in srcs_feat)
+        if method == "rect" and not (uniform
+                                     and min(srcs_feat[0].shape[1:3]) >= 21):
+            # the JAX package's gate (vis_mosaic_supported, uniform
+            # stacked pairs); elsewhere the exact kernel path
+            method = "gwc"
+        if method == "rect":
+            costs = rect_gwc_volume(srcs_feat, ref_feat, K, R, t, depth_num,
+                                    depth_start, depth_interval, (h, w))
+
         def cost_of(i):
             src = srcs_feat[i]
-            cam = (K[:, 0], R[:, 0], t[:, 0], K[:, i + 1], R[:, i + 1],
-                   t[:, i + 1])
+            if method == "rect":
+                return costs[i]
             if method == "gather":
-                warped = homography_sweep_warp(src, *cam, depth_num,
-                                               depth_start, depth_interval,
-                                               (h, w))
+                warped = homography_sweep_warp(
+                    src, K[:, 0], R[:, 0], t[:, 0], K[:, i + 1], R[:, i + 1],
+                    t[:, i + 1], depth_num, depth_start, depth_interval,
+                    (h, w))
                 return groupwise_correlation(ref_feat[:, None], warped,
                                              GWC_GROUPS)
-            P, Q, scale, clamp = vis_planes(*cam, (h, w),
-                                            tuple(src.shape[1:3]))
-            steps = torch.arange(depth_num, dtype=torch.float32,
-                                 device=src.device).reshape(1, -1, 1, 1)
-            s = inverse_depths(depth_start.float()
-                               + depth_interval.float() * steps)
-            s = (s[:, :, 0, 0] if s.shape[2:] == (1, 1)
-                 else s.expand(b, depth_num, h, w)).contiguous()
+            s = vis_svals(depth_num, depth_start, depth_interval, (h, w))
             src16 = src.to(torch.bfloat16).contiguous()
+            src_hw = tuple(src.shape[1:3])
             if method == "gwc":
-                return sweep_gwc(src16, ref_feat.to(torch.bfloat16)
-                                 .contiguous(), P, Q, s, scale,
-                                 clamp).to(dtype)
+                return exact_gwc_volume(
+                    src16, ref_feat.to(torch.bfloat16).contiguous(), K, R, t,
+                    i + 1, s, src_hw).to(dtype)
+            P, Q, scale, clamp = vis_planes(K[:, 0], R[:, 0], t[:, 0],
+                                            K[:, i + 1], R[:, i + 1],
+                                            t[:, i + 1], (h, w), src_hw)
             warped = sweep_warp(src16, P, Q, s, scale, clamp)
             return groupwise_correlation(ref_feat.float()[:, None],
                                          warped.float(),
@@ -240,7 +254,6 @@ class SingleStage(nn.Module):
         pairs = [self._tail(cost_of(i), depth_start, depth_interval)
                  for i in range(n_src)]
         pair_results = [(est, (unc,)) for _, est, unc in pairs]
-        uniform = all(s.shape == srcs_feat[0].shape for s in srcs_feat)
         if not self.training and uniform:
             fused = self._fuse_stacked(pairs)
         else:
@@ -350,14 +363,12 @@ class VisMVSNet(nn.Module):
             raise ValueError(
                 "sweep_method='gwc' is eval only (sweep_gwc has no "
                 "backward); train through 'warp', 'gather' or 'auto'")
+        if method == "rect" and self.training:
+            method = "auto"          # the JAX package's training fall-through
         if method == "auto":
             kernel = "warp" if self.training else "gwc"
             method = (kernel if device.type == "cuda"
                       and feats_dtype == torch.bfloat16 else "gather")
-        if method == "rect":
-            raise NotImplementedError(
-                "sweep_method='rect' is not ported yet (ROADMAP Queue 1, "
-                "item 2: ops/rect_sweep.py)")
         return method
 
     def forward(self, imgs, K, R, t, depth_min, depth_max,

@@ -196,6 +196,20 @@ def inverse_depths(depth: torch.Tensor) -> torch.Tensor:
     return 1.0 / (depth.float() + 1e-9)
 
 
+def vis_svals(depth_num: int, depth_start: torch.Tensor,
+              depth_interval: torch.Tensor,
+              ref_hw: tuple[int, int]) -> torch.Tensor:
+    """The Vis sweep's hypotheses `inverse_depths(start + interval * i)`,
+    i < depth_num, contiguous f32: [B, D] for a uniform depth_start
+    [B, 1, 1, 1], [B, D, H, W] for a per-pixel one [B, 1, H, W]."""
+    steps = torch.arange(depth_num, dtype=torch.float32,
+                         device=depth_start.device).reshape(1, -1, 1, 1)
+    s = inverse_depths(depth_start.float() + depth_interval.float() * steps)
+    if s.shape[2:] == (1, 1):
+        return s[:, :, 0, 0].contiguous()
+    return s.expand((s.shape[0], depth_num) + tuple(ref_hw)).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # plain versions (the kernels' arithmetic in PyTorch)
 # ---------------------------------------------------------------------------

@@ -19,28 +19,34 @@ def eval_model_kwargs(architecture: str, bf16: bool = True,
     (depth resolution = image resolution / downscale). Inference defaults
     to bf16 networks. vis_mvsnet sweeps (64, 32, 16) hypotheses at interval
     scales (2, 1, 0.5) (reference pipeline_utils.py:142-144; the JAX
-    package's eval_model_kwargs, depthmaps.py:60-74). cvp_mvsnet's depth
+    package's eval_model_kwargs, depthmaps.py:23-75). cvp_mvsnet's depth
     is at full resolution.
 
-    An explicit sweep_method wins. cvp_mvsnet's "auto" is the rectified
-    sweep in the JAX package (depthmaps.py:50-59), an approximation that is
-    not ported yet, so it raises rather than give other numerics under the
-    same name."""
+    An explicit sweep_method wins; "auto" leaves the model's default
+    (no "sweep_method" key), except for cvp_mvsnet, whose eval default is
+    the rectified sweep "rect", as in the JAX package: an approximation
+    of the exact sweep (ops/rect_sweep.py), announced by one printed
+    note. vis_mvsnet with "rect" prints a note as well: its exact default
+    "auto" is the per-architecture choice of the JAX package."""
     if architecture not in ("mvsnet", "mvsnet-s", "vis_mvsnet",
                             "cvp_mvsnet"):
         raise ValueError(f"unknown architecture: {architecture}")
-    kwargs = {"sweep_method": sweep_method}
+    kwargs = {} if sweep_method == "auto" else {"sweep_method": sweep_method}
     if bf16:
         kwargs["dtype"] = torch.bfloat16
     if architecture == "cvp_mvsnet":
         if sweep_method == "auto":
-            raise NotImplementedError(
-                "cvp_mvsnet's eval default sweep_method 'auto' is the "
-                "rectified sweep, which is not ported yet (ROADMAP Queue 1, "
-                "item 2); pass sweep_method='fused' (exact, the kernel) or "
-                "'gather' (exact, plain PyTorch)")
+            print("[wildmvs_torch] cvp_mvsnet eval sweep_method 'auto' -> "
+                  "'rect' (the H_inf-factored sweep, an approximation of "
+                  "the exact sweep; pass sweep_method='fused' or 'gather' "
+                  "for the exact path)", flush=True)
+            kwargs["sweep_method"] = "rect"
         return {"kwargs": kwargs, "downscale": 1}
     if architecture == "vis_mvsnet":
+        if sweep_method == "rect":
+            print("[wildmvs_torch] vis_mvsnet with sweep_method='rect' "
+                  "serves the approximate rectified sweep; 'auto' (the "
+                  "exact sweep) is its per-architecture default", flush=True)
         kwargs.update(depth_nums=(64, 32, 16),
                       interval_scales=(2.0, 1.0, 0.5))
         return {"kwargs": kwargs, "downscale": 2}
@@ -48,7 +54,9 @@ def eval_model_kwargs(architecture: str, bf16: bool = True,
 
 
 def run_depthmaps(dataset, model: torch.nn.Module, out_dir: str | Path,
-                  override: bool = False, cvp_nscale: int | None = None):
+                  override: bool = False, debug: bool = False,
+                  process_index: int = 0, process_count: int = 1,
+                  cvp_nscale: int | None = None):
     """Run the eval forward for every reference view and cache npz outputs.
 
     `dataset` is anything with len() and [i] that yields the eval sample
@@ -56,8 +64,12 @@ def run_depthmaps(dataset, model: torch.nn.Module, out_dir: str | Path,
     depth_min, depth_max (numpy or tensors, no batch axis) and filename.
     The model runs on the device its parameters are on; `cvp_nscale`, if
     given, goes to the forward as `nscale` (cvp_mvsnet's pyramid levels).
-    (The JAX package's multi-host sharding of the view list is not ported
-    yet, ROADMAP Queue 1, item 6.)
+
+    debug: stop after the first depthmap written. process_index /
+    process_count: this process's shard of the views (view i when
+    i % process_count == process_index); a sharded run does not write the
+    finished.txt sentinel, so that a later unsharded pass checks every
+    cached file and then marks the stage complete.
     """
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -71,6 +83,8 @@ def run_depthmaps(dataset, model: torch.nn.Module, out_dir: str | Path,
         return torch.as_tensor(np.array(x, np.float32), device=device)[None]
 
     for i in range(len(dataset)):
+        if i % process_count != process_index:
+            continue
         sample = dataset[i]
         filename = sample["filename"].replace("/", "_")
         out_file = out_dir / f"{filename}_out.npz"
@@ -88,7 +102,10 @@ def run_depthmaps(dataset, model: torch.nn.Module, out_dir: str | Path,
             depthmap=out["depth"][0].float().cpu().numpy(),
             probability=out["photometric_confidence"][0].float().cpu()
             .numpy())
-    (out_dir / "finished.txt").write_text(" ")
+        if debug:
+            return
+    if process_count == 1:
+        (out_dir / "finished.txt").write_text(" ")
 
 
 def get_mask_invalid(prob: np.ndarray, prob_threshold: float = 0.8,

@@ -1,13 +1,19 @@
-"""Training logs: running means of scalar metrics and a JSON-lines log.
+"""Training logs and stage timing: running means of scalar metrics, a
+JSON-lines log, and the pipeline's per-stage wall clock.
 
-Counterpart of the scalar part of wildmvs/utils/monitor.py (`MeterSet`,
-`Logger.log`; reference utils/monitor.py:23-45, utils/trainer.py:18-48).
-Image panels are not ported yet (ROADMAP Queue 1, item 7).
+Counterpart of wildmvs/utils/monitor.py's `MeterSet`, `Logger.log` and
+`StageTimer` (reference utils/monitor.py:23-45, utils/trainer.py:18-48).
+Image panels and the profiler trace are not ported yet (ROADMAP Queue 1,
+item 7).
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import time
 from pathlib import Path
+
+import torch
 
 
 class Logger:
@@ -46,3 +52,46 @@ class MeterSet:
         self._sums.clear()
         self._counts.clear()
         return out
+
+
+class StageTimer:
+    """Wall clock per pipeline stage, summarized as a dict. With a CUDA
+    `device`, each mark synchronizes the card before it reads the clock
+    (one host sync a mark), so a stage's time includes its device work."""
+
+    def __init__(self, device: str | torch.device | None = None):
+        self.device = None if device is None else torch.device(device)
+        self.totals: dict[str, float] = {}
+        self.counts: dict[str, int] = {}
+        self._last = self._now()
+
+    def _now(self) -> float:
+        if self.device is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def _add(self, name: str, dt: float):
+        self.totals[name] = self.totals.get(name, 0.0) + dt
+        self.counts[name] = self.counts.get(name, 0) + 1
+
+    def mark(self, name: str):
+        """Attribute the time since the previous mark (or construction) to
+        `name`."""
+        now = self._now()
+        self._add(name, now - self._last)
+        self._last = now
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        """Time the block as `name`."""
+        t0 = self._now()
+        try:
+            yield
+        finally:
+            self._add(name, self._now() - t0)
+
+    def summary(self) -> dict:
+        return {k: {"total_s": round(self.totals[k], 4),
+                    "count": self.counts[k],
+                    "mean_s": round(self.totals[k] / self.counts[k], 4)}
+                for k in self.totals}
