@@ -58,6 +58,19 @@ JAX or of the JAX package. Phases, each of which stops the run if it fails:
      the last loss below the first; the first step's feature gradients at
      both levels against the exact gather's autograd; an eval and a test
      step (fused launches) and a checkpoint served by Predictor.
+ 10. the rectified sweep (phase10_rect_serving) and
+ 11. the reconstruction pipeline (phase11_reconstruction): see their
+     docstrings.
+ 12. unsupervised training (the seventh path, "unsup_training"): MVSNet at
+     512x640 N3 D192, bf16, occlusion-masked (every view as the reference
+     in one step, geom_clamping 0.05): 6 steps of 6 sweep_warp and 6
+     sweep_warp_backward launches, finite gradients, the last loss below
+     the first, the first step's six warps' feature gradients against the
+     gather's autograd, one profiled step, the peak memory beside phase
+     5's, an occlusion-masked eval step; then 4 steps each of Vis-MVSNet
+     occlusion-masked (18 + 18 launches a step) and CVP-MVSNet nscale 2
+     unmasked (4 + 4). The DTU loader is not driven here: the card's
+     machine has PIL and cv2 but not h5py (README).
 
 Phase 1 also holds sweep_warp_backward to its plain version ([D], [D,H,W]
 and the behind-camera rig) and times it against torch's
@@ -905,9 +918,11 @@ def record_warps(rec: list):
     return lambda: setattr(mvsnet_module, "sweep_warp", real)
 
 
-def warp_gradient_agreement(rec, batch, model):
+def warp_gradient_agreement(rec, batch, model, pairs=((0, 1), (0, 2)),
+                            phase="phase5"):
     """The kernel path's source-feature gradients against the exact gather
-    path's autograd (plane_sweep_warp in f32) at the same cotangent.
+    path's autograd (plane_sweep_warp in f32) at the same cotangent; entry
+    j of `rec` warped source view pairs[j][1] into reference pairs[j][0].
 
     The kernel takes the bf16 cotangent, accumulates in f32 with atomics
     and rounds once to bf16; the gather transposes in f32. Held to one
@@ -916,26 +931,28 @@ def warp_gradient_agreement(rec, batch, model):
     proj = build_proj_matrices(scale_K(batch["K"], 0.25), batch["R"],
                                batch["t"])
     steps = torch.arange(D, dtype=torch.float32, device=proj.device)
-    dmin, dmax = batch["depth_min"][:, 0], batch["depth_max"][:, 0]
-    ref_depths = dmin[:, None] + ((dmax - dmin) / (D - 1))[:, None] * steps
     worst = 0.0
-    for view, e in zip((1, 2), rec):
+    for (ref, view), e in zip(pairs, rec):
+        dmin, dmax = batch["depth_min"][:, ref], batch["depth_max"][:, ref]
+        ref_depths = (dmin[:, None]
+                      + ((dmax - dmin) / (D - 1))[:, None] * steps)
         src = e["src"].float().requires_grad_()
         fh, fw = src.shape[1:3]
-        warped = plane_sweep_warp(src, proj[:, view], proj[:, 0],
+        warped = plane_sweep_warp(src, proj[:, view], proj[:, ref],
                                   ref_depths, (fh, fw))
         (want,) = torch.autograd.grad(warped, src, e["g"].float())
         err = (e["df"].float() - want).abs()
         scale = want.abs().max().item()
-        print(f"phase5 feature gradient view {view}: kernel vs gather max "
-              f"{err.max().item():.6g} mean {err.mean().item():.6g} (scale "
-              f"{scale:.4g}, limits {2 ** -7 * scale:.4g} and "
-              f"{2 ** -9 * scale:.4g})", flush=True)
+        print(f"{phase} feature gradient reference {ref} view {view}: kernel"
+              f" vs gather max {err.max().item():.6g} mean "
+              f"{err.mean().item():.6g} (scale {scale:.4g}, limits "
+              f"{2 ** -7 * scale:.4g} and {2 ** -9 * scale:.4g})",
+              flush=True)
         check(scale > 0, "zero feature gradient")
         check(err.max().item() <= 2 ** -7 * scale
               and err.mean().item() <= 2 ** -9 * scale,
-              f"view {view}: kernel feature gradient disagrees with the "
-              f"gather path's")
+              f"reference {ref} view {view}: kernel feature gradient "
+              f"disagrees with the gather path's")
         worst = max(worst, err.max().item())
     return worst
 
@@ -1921,6 +1938,134 @@ def phase9_cvp_training(dev):
 
 
 # ---------------------------------------------------------------------------
+# Unsupervised training
+# ---------------------------------------------------------------------------
+
+UNSUP_STEPS = 4                 # phase 12b's steps an architecture
+
+
+def unsup_steps(state, batch, cfg, steps, phase, first_step=None):
+    """`steps` train steps on one batch: finite gradients at each, and the
+    launch counts of the loop alone (read just after it). first_step(state)
+    runs after step 0. Returns (counts, losses, ms per step, peak bytes)."""
+    params = list(state.model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    losses, times = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, m = T.train_step(state, batch, cfg)
+        grads_finite = torch.stack([torch.isfinite(p.grad).all()
+                                    for p in params]).all()
+        losses.append(m["train_loss"].item())
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(bool(grads_finite), f"{phase} step {i}: a gradient is not "
+              f"finite")
+        if i == 0 and first_step is not None:
+            first_step(state)
+    counts = sk.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{phase} launches {json.dumps(counts)}", flush=True)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{phase} losses {losses}")
+    return counts, losses, times, peak
+
+
+def unsup_report(phase, what, losses, times, peak, **extra):
+    steady = float(np.median(times[1:]))
+    print(f"{phase} {what}: losses {[round(x, 5) for x in losses]}; ms per "
+          f"step first {times[0]:.3f} then {[round(t, 3) for t in times[1:]]}"
+          f" (median {steady:.3f}); peak memory {peak / 2**30:.3f} GiB",
+          flush=True)
+    return dict(losses=losses, first_step_ms=times[0], step_ms_median=steady,
+                step_ms=times, peak_gib=peak / 2 ** 30, **extra)
+
+
+def phase12_unsup_training(dev, supervised_peak_gib):
+    """Unsupervised (photometric) training, the paper's recipe. 12a: MVSNet
+    at 512x640 N3 D192, bf16 compute, f32 parameters, Adam lr 1e-3,
+    occlusion-masked (every view as the reference, geom_clamping 0.05)
+    through the warp kernel and its backward: TRAIN_STEPS steps, 6 + 6
+    launches a step, the first step's feature gradients (all six warps,
+    references 0-2) against the gather's autograd, one profiled step, the
+    peak memory beside phase 5's, and an occlusion-masked eval step (3
+    fused launches). 12b: Vis-MVSNet (32, 16, 8) occlusion-masked (18 + 18
+    a step) and CVP-MVSNet nscale 2 unmasked (4 + 4), UNSUP_STEPS steps
+    each. Returns the summed counts of the step loops (the
+    "unsup_training" path) and the results."""
+    n = HEADLINE["n"]
+    ds = SyntheticMVSDataset(num_samples=1, num_views=n,
+                             height=HEADLINE["h"], width=HEADLINE["w"])
+    batch = T.batch_to_device(collate([ds[0]]), dev)
+    cfg = TrainConfig(architecture="mvsnet", dataset="synthetic",
+                      num_depth=NUM_DEPTH, lr=1e-3, train_dtype="bfloat16",
+                      supervised=False, occ_masking=True, geom_clamping=0.05)
+    state = T.create_train_state(cfg, dev)
+    rec = []
+    undo = record_warps(rec)
+    counts, losses, times, peak = unsup_steps(
+        state, batch, cfg, TRAIN_STEPS, "phase12a",
+        first_step=lambda st: undo())
+    per_step = n * (n - 1)
+    check(counts == {"sweep_warp": per_step * TRAIN_STEPS,
+                     "sweep_warp_backward": per_step * TRAIN_STEPS,
+                     "fused_cost_volume": 0, "sweep_gwc": 0},
+          f"occlusion-masked MVSNet training did not take the warp "
+          f"kernels: {counts}")
+    check(len(rec) == per_step and all("df" in e and "g" in e for e in rec),
+          "the first occlusion-masked step's warps were not recorded")
+    mvsnet = unsup_report(
+        "phase12a", f"occlusion-masked MVSNet {HEADLINE['h']}x"
+        f"{HEADLINE['w']} N{n} D{NUM_DEPTH} "
+        f"bf16 (f32 parameters; phase 5's supervised peak "
+        f"{supervised_peak_gib:.3f} GiB)", losses, times, peak,
+        supervised_peak_gib=supervised_peak_gib)
+    pairs = [(r, v) for r in range(n) for v in range(n) if v != r]
+    mvsnet["feature_grad_max_err"] = warp_gradient_agreement(
+        rec, batch, state.model, pairs, "phase12a")
+    del rec
+    mvsnet.update(profile_step(lambda: T.train_step(state, batch, cfg),
+                               "phase12a"))
+    n0 = sk.fused_cost_volume.launches
+    val = T.eval_step(state, batch, cfg)["val_loss"].item()
+    check(sk.fused_cost_volume.launches == n0 + n and np.isfinite(val),
+          f"occlusion-masked eval step: val_loss {val}, "
+          f"{sk.fused_cost_volume.launches - n0} fused launches")
+    mvsnet["val_loss"] = val
+    print(f"phase12a occlusion-masked eval_step val_loss {val:.5f}",
+          flush=True)
+    del state
+    torch.cuda.empty_cache()
+
+    results = {"mvsnet_occ": mvsnet}
+    total = dict(counts)
+    for arch, occ, per in (("vis_mvsnet", True, 3 * n * (n - 1)),
+                           ("cvp_mvsnet", False, 2 * (n - 1))):
+        cfg = TrainConfig(architecture=arch, dataset="synthetic", lr=1e-3,
+                          train_dtype="bfloat16", supervised=False,
+                          occ_masking=occ, geom_clamping=0.05)
+        state = T.create_train_state(cfg, dev)
+        counts, losses, times, peak = unsup_steps(
+            state, batch, cfg, UNSUP_STEPS, "phase12b")
+        check(counts == {"sweep_warp": per * UNSUP_STEPS,
+                         "sweep_warp_backward": per * UNSUP_STEPS,
+                         "fused_cost_volume": 0, "sweep_gwc": 0},
+              f"unsupervised {arch} did not take the warp kernels: {counts}")
+        name = f"{arch}_{'occ' if occ else 'unsup'}"
+        results[name] = unsup_report(
+            "phase12b", f"{'occlusion-masked' if occ else 'unsupervised'} "
+            f"{arch} {HEADLINE['h']}x{HEADLINE['w']} N{n} bf16", losses,
+            times, peak)
+        results[name].update(profile_step(
+            lambda: T.train_step(state, batch, cfg), f"phase12b {arch}"))
+        total = {k: total[k] + counts[k] for k in total}
+        del state
+        torch.cuda.empty_cache()
+    return total, results
+
+
+# ---------------------------------------------------------------------------
 # The rectified sweep and the reconstruction pipeline
 # ---------------------------------------------------------------------------
 
@@ -2386,12 +2531,21 @@ def main() -> int:
     rect_counts, rect_serving = phase10_rect_serving()
     torch.cuda.empty_cache()
     recon_counts, reconstruction = phase11_reconstruction()
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    unsup_counts, unsup_training = phase12_unsup_training(
+        dev, training["peak_gib"])
+    unsup_training["phase_s"] = time.perf_counter() - t12
+    print(f"phase12 took {unsup_training['phase_s']:.1f} s of "
+          f"{time.perf_counter() - t0:.1f} s since the build began",
+          flush=True)
 
     # launches: each path's own, counted from 0 just before its run
     paths = {"mvsnet_serving": counts, "mvsnet_training": train_counts,
              "vis_serving": vis_counts, "vis_training": vis_train_counts,
              "cvp_serving": cvp_counts, "cvp_training": cvp_train_counts,
-             "rect_serving": rect_counts, "reconstruction": recon_counts}
+             "rect_serving": rect_counts, "reconstruction": recon_counts,
+             "unsup_training": unsup_counts}
     for name, k in kernels.items():
         k["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         k["launches"] = sum(c[name] for c in paths.values())
@@ -2409,7 +2563,8 @@ def main() -> int:
                       "vis_training": vis_training,
                       "cvp_serving": cvp_serving, "cvp_training": cvp_training,
                       "rect_serving": rect_serving,
-                      "reconstruction": reconstruction, "card": card}),
+                      "reconstruction": reconstruction,
+                      "unsup_training": unsup_training, "card": card}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -183,4 +183,8 @@ def test_port_imports_neither_jax_nor_wildmvs():
             "wildmvs_torch.data.synthetic",
             "wildmvs_torch.utils.monitor", "wildmvs_torch.models.vis_mvsnet",
             "wildmvs_torch.nn.blocks", "wildmvs_torch.ops.plane_sweep",
-            "wildmvs_torch.ops.volumes"} <= names
+            "wildmvs_torch.ops.volumes", "wildmvs_torch.data.loaders",
+            "wildmvs_torch.data.codecs", "wildmvs_torch.data.colmap_model",
+            "wildmvs_torch.data.colmap_utils", "wildmvs_torch.data.prefetch",
+            "wildmvs_torch.losses.ssim",
+            "wildmvs_torch.losses.photometric"} <= names

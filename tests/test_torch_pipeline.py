@@ -28,7 +28,7 @@ from wildmvs.pipeline.filtering import geometric_filter as jax_filter
 from wildmvs.pipeline.fusion import fuse_depthmaps as jax_fuse
 from wildmvs.pipeline.reconstruction import run_pipeline as jax_pipeline
 from wildmvs.train.checkpoint import save_params_npz
-from wildmvs_torch.data import ply
+from wildmvs_torch.data import codecs, ply
 from wildmvs_torch.data.synthetic import SyntheticSceneDataset
 from wildmvs_torch.geometry import projective as geo
 from wildmvs_torch.pipeline import metrics3d, reconstruction
@@ -350,10 +350,45 @@ def test_run_pipeline_mvsnet_sharded_then_complete(dataset, mvsnet_npz,
                     .glob("*_out.npz"))) == 1
 
 
+def write_dtu_eval_scan(root, scene, views=3):
+    """The synthetic scene as a DTU evaluation scan written by the port's
+    codecs: <root>/<scene>/{pair.txt, images/*.jpg, cams/*_cam.txt}, the
+    depth range 192 intervals from 2."""
+    from PIL import Image
+    ds = SyntheticSceneDataset(num_views=views, height=SH, width=SW)
+    (root / scene / "images").mkdir(parents=True)
+    (root / scene / "cams").mkdir()
+    lines = [str(views)]
+    for v in range(views):
+        srcs = [u for u in range(views) if u != v]
+        lines += [str(v), f"{len(srcs)} " + " ".join(f"{u} 1.0"
+                                                      for u in srcs)]
+        s = ds[v]
+        Image.fromarray((s["imgs"][0] * 255).round().astype(np.uint8)).save(
+            root / scene / "images" / f"{v:08d}.jpg", quality=95)
+        ext = np.eye(4)
+        ext[:3, :3], ext[:3, 3:] = s["R"][0], s["t"][0]
+        codecs.write_cam_txt(root / scene / "cams" / f"{v:08d}_cam.txt", ext,
+                             s["K"][0], 2.0, 4.0 / 192)
+    (root / scene / "pair.txt").write_text("\n".join(lines) + "\n")
+
+
 def test_cli_drives_the_pipeline(tmp_path):
     res = reconstruction.main(["--dataset", "synthetic", "--architecture",
                                "oracle", "--device", "cpu", "--work_dir",
                                str(tmp_path), "--nviews", "3"])
     assert res["num_points"] > 0
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        reconstruction.main(["--dataset", "dtu", "--device", "cpu"])
+    # --dataset dtu reads the scan from --data_path (data/loaders.py)
+    write_dtu_eval_scan(tmp_path / "dtu", "scan1")
+    res = reconstruction.main(["--dataset", "dtu", "--data_path",
+                               str(tmp_path / "dtu"), "--scene", "scan1",
+                               "--architecture", "mvsnet", "--device", "cpu",
+                               "--work_dir", str(tmp_path / "dtu_out"),
+                               "--nviews", "3"])
+    assert res["scene"] == "scan1" and res["num_points"] >= 0
+    maps = sorted((tmp_path / "dtu_out" / "IntRes" / "depthmaps" / "scan1")
+                  .glob("*_out.npz"))
+    assert [m.name for m in maps] == [f"{v:08d}_out.npz" for v in range(3)]
+    with np.load(maps[0]) as z:
+        assert z["depthmap"].shape == (SH // 4, SW // 4)
+        assert np.isfinite(z["depthmap"]).all()

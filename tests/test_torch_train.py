@@ -23,6 +23,7 @@ from wildmvs.train import metrics as jax_metrics
 from wildmvs.train import trainer as JT
 from wildmvs.train.checkpoint import load_params_npz as jax_load_npz
 from wildmvs.train.config import TrainConfig as JaxConfig
+from wildmvs_torch.data import loaders
 from wildmvs_torch.data.synthetic import SyntheticMVSDataset, collate
 from wildmvs_torch.infer import Predictor
 from wildmvs_torch.losses import supervised as sup
@@ -32,6 +33,7 @@ from wildmvs_torch.train import metrics
 from wildmvs_torch.train import trainer as T
 from wildmvs_torch.train.config import TrainConfig
 from wildmvs_torch.train.jax_import import state_dict_from_jax
+from tests.test_torch_loaders import dtu_train_root
 from tests.test_torch_mvsnet import D, jax_variables
 
 ASSET = Path(__file__).resolve().parent.parent / "assets" / \
@@ -307,7 +309,7 @@ def test_bf16_training_keeps_f32_parameters():
     assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
 
 
-def test_train_mode_options_and_unported_paths():
+def test_train_mode_options_and_unported_paths(tmp_path):
     args = [torch.from_numpy(v) for k, v in synthetic_batch().items()
             if k in ("imgs", "K", "R", "t", "depth_min", "depth_max")]
     fused = build_model("mvsnet", device="cpu", num_depth=8,
@@ -331,11 +333,31 @@ def test_train_mode_options_and_unported_paths():
                 dict(remat=True), dict(hyp_axis="hyp")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.create_model(dataclasses.replace(cfg, **bad), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.loss_from_outputs({}, {}, dataclasses.replace(
-            cfg, supervised=False))
-    for argv in (["--unsupervised"], ["--world_size", "2"], ["--trace"],
-                 ["--dataset", "dtu", "--device", "cpu"]):
+    # unsupervised training runs (tests/test_torch_unsup.py holds it to
+    # JAX): the photometric loss of a forward, the CLI on synthetic data
+    # and on a DTU training layout read from --data_path
+    model = build_model("mvsnet", device="cpu", num_depth=8)
+    batch = T.batch_to_device(synthetic_batch(), "cpu")
+    loss = T.loss_from_outputs(model.train()(*args), batch,
+                               dataclasses.replace(cfg, supervised=False))
+    assert loss.requires_grad and 0 < loss.item() < 1
+    base = ["--device", "cpu", "--num_depth", "8", "--debug",
+            "--num_workers", "0", "--print_every", "1"]
+    hist = cli.main(base + ["--unsupervised", "--occ_masking", "--logdir",
+                            str(tmp_path / "synthetic")])
+    assert np.isfinite(hist["train_loss"][0] + hist["val_loss"][0])
+    assert (tmp_path / "synthetic" / "e0_warped_ref0src_2.jpg").exists()
+    dtu_train_root(tmp_path / "dtu", scans=tuple(int(s) for s in (
+        loaders.scene_list("dtu_train") + loaders.scene_list("dtu_val"))),
+        h=512, w=640)
+    dtu = ["--dataset", "dtu", "--data_path", str(tmp_path / "dtu")]
+    hist = cli.main(base + dtu + ["--unsupervised", "--logdir",
+                                  str(tmp_path / "run")])
+    assert np.isfinite(hist["train_loss"][0] + hist["val_loss"][0])
+    assert set(hist["test"][0]) == {"EPE", "1pxError", "3pxError"}
+    with pytest.raises(SystemExit, match="upsample_training"):
+        cli.main(base + dtu)             # supervised DTU: GT is at 1/4
+    for argv in (["--world_size", "2"], ["--trace"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(argv)
     assert cfg.lr_at_epoch(13) == pytest.approx(1e-4)

@@ -55,7 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..geometry.projective import build_proj_matrices, scale_K
 from ..nn.blocks import (ConvBnReLU, ConvTransposeBnReLU, cast_convs,
-                         init_weights)
+                         frozen_running_stats, init_weights)
 from ..ops.resize import bicubic_double, bilinear_half
 from ..ops.select import masked_median
 from ..ops.volumes import depth_regression, photometric_confidence
@@ -182,26 +182,6 @@ def cal_depth_hypo(ref_depth, K_ref, K_src, R_ref, t_ref, R_src, t_src,
     levels = torch.arange(-d, d, dtype=torch.float32,
                           device=dev).reshape(1, 2 * d, 1, 1)
     return depth[:, None] + levels * med[:, None, None, None]
-
-
-@contextlib.contextmanager
-def frozen_running_stats(module: nn.Module):
-    """Within the block, train-mode BatchNorm still normalizes by the batch
-    statistics but leaves its running statistics and count as they were
-    (momentum 0): a checkpointed level's second forward, in the backward,
-    must not count its batch twice. The running tensors stay arguments of
-    the op, so the recomputation saves what the first forward saved."""
-    bns = [m for m in module.modules()
-           if isinstance(m, nn.modules.batchnorm._BatchNorm)]
-    kept = [(m.momentum, m.num_batches_tracked.clone()) for m in bns]
-    for m in bns:
-        m.momentum = 0.0
-    try:
-        yield
-    finally:
-        for m, (momentum, count) in zip(bns, kept):
-            m.momentum = momentum
-            m.num_batches_tracked.copy_(count)
 
 
 @register_model("cvp_mvsnet")

@@ -16,6 +16,8 @@ Tensors are torch's NC(D)HW; the model keeps them in channels-last memory.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 
@@ -175,3 +177,24 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, nn.modules.batchnorm._BatchNorm):
             m.reset_parameters()
     return module
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Within the block, train-mode BatchNorm still normalizes by the batch
+    statistics but leaves its running statistics and count as they were
+    (momentum 0): a checkpointed level's second forward, in the backward,
+    must not count its batch twice, nor a second reference view's forward
+    in an occlusion-masked step. The running tensors stay arguments of
+    the op, so the recomputation saves what the first forward saved."""
+    bns = [m for m in module.modules()
+           if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+    kept = [(m.momentum, m.num_batches_tracked.clone()) for m in bns]
+    for m in bns:
+        m.momentum = 0.0
+    try:
+        yield
+    finally:
+        for m, (momentum, count) in zip(bns, kept):
+            m.momentum = momentum
+            m.num_batches_tracked.copy_(count)

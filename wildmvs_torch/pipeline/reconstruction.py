@@ -13,6 +13,13 @@ Usage:
       --debug --device cpu
   python -m wildmvs_torch.pipeline.reconstruction --dataset synthetic \
       --architecture oracle --compute_metrics
+  python -m wildmvs_torch.pipeline.reconstruction --dataset dtu \
+      --data_path <root> --scene scan1 --model <checkpoint>
+
+--dataset dtu reads <data_path>/<scene>/{pair.txt,images,cams}
+(data/loaders.DTUEvalDataset), --dataset yfcc the COLMAP model
+<data_path>/sparse/<scene> and <data_path>/images/<scene>
+(YFCCSceneDataset).
 """
 from __future__ import annotations
 
@@ -362,12 +369,14 @@ def main(argv=None):
         a.architecture = "classic"
     if a.fusion == "colmap" and a.fusion_max_reproj_error is None:
         a.fusion_max_reproj_error = 1.0       # COLMAP fusion's default
-    if a.dataset != "synthetic":
-        raise NotImplementedError(
-            f"--dataset {a.dataset}: the real-data loaders are not ported "
-            f"yet (ROADMAP Queue 1, item 4)")
-    from ..data.synthetic import SyntheticSceneDataset
-    dataset = SyntheticSceneDataset(num_views=a.nviews, height=64, width=96)
+    if a.dataset == "synthetic":
+        from ..data.synthetic import SyntheticSceneDataset
+        dataset = SyntheticSceneDataset(num_views=a.nviews, height=64,
+                                        width=96)
+    else:
+        from ..data import loaders
+        dataset = loaders.build_eval_dataset(a.dataset, a.data_path, a.scene,
+                                             nviews=a.nviews)
     results = run_pipeline(
         dataset, Path(a.work_dir), model_dir=a.model,
         architecture=a.architecture, dataset_name=a.dataset, scene=a.scene,

@@ -1,23 +1,27 @@
 """Training CLI: the epoch loop on one card.
 
 Counterpart of wildmvs/train/cli.py:97-340 (reference train.py:64-252) for
-MVSNet, Vis-MVSNet and CVP-MVSNet supervised training on the synthetic
-dataset:
+MVSNet, Vis-MVSNet and CVP-MVSNet, supervised or unsupervised
+(photometric, optionally occlusion-masked), on DTU, MegaDepth, BlendedMVS
+(data/loaders.py) or the synthetic dataset:
 
   python -m wildmvs_torch.train.cli --dataset synthetic --num_depth 16 --debug
   python -m wildmvs_torch.train.cli --device cpu --dataset synthetic \
       --num_depth 16 --debug
   python -m wildmvs_torch.train.cli --device cpu --dataset synthetic \
-      --architecture vis_mvsnet --debug
-  python -m wildmvs_torch.train.cli --device cpu --dataset synthetic \
-      --architecture cvp_mvsnet --debug
+      --architecture vis_mvsnet --unsupervised --occ_masking --debug
+  python -m wildmvs_torch.train.cli --dataset md --data_path <root> \
+      --unsupervised --occ_masking --bf16
 
-Runs on "cuda" unless `--device cpu` is given. Each epoch trains, writes
-`<logdir>/model_{epoch:06d}.ckpt` every `--save_freq` epochs, then runs the
-validation loss and the test metrics; scalar logs go to `<logdir>/logs.txt`.
-Not ported yet, and raising NotImplementedError with their ROADMAP item:
-real datasets (dtu, md, blended), --unsupervised and --occ_masking,
---world_size > 1, --remat and --trace.
+Runs on "cuda" unless `--device cpu` is given. Samples are loaded by
+`--num_workers` threads ahead of the step (0: in line). Each epoch trains
+(every `--print_every` steps it prints the running means and writes the
+training images, utils/monitor.training_panels, and the predicted depth as
+jpgs to the logdir), writes `<logdir>/model_{epoch:06d}.ckpt` every
+`--save_freq` epochs, then runs the validation loss and the test metrics;
+scalar logs go to `<logdir>/logs.txt`. Not ported yet, and raising
+NotImplementedError with their ROADMAP item: --world_size > 1, --remat
+and --trace.
 """
 from __future__ import annotations
 
@@ -27,9 +31,10 @@ from pathlib import Path
 
 import numpy as np
 
+from ..data.prefetch import iterate_batches
 from ..data.synthetic import SyntheticMVSDataset, collate
 from ..device import resolve_device
-from ..utils.monitor import Logger, MeterSet
+from ..utils.monitor import Logger, MeterSet, training_panels
 from . import trainer as T
 from .checkpoint import (latest_checkpoint, load_model_weights,
                          restore_checkpoint, save_checkpoint)
@@ -38,22 +43,22 @@ from .config import TrainConfig
 
 def build_datasets(config: TrainConfig):
     """(train, val, test) datasets (reference train.py:67-104)."""
-    if config.dataset != "synthetic":
-        raise NotImplementedError(
-            f"--dataset {config.dataset}: the port's data loaders are not "
-            f"ported yet (ROADMAP Queue 1, item 4); use --dataset "
-            f"synthetic")
-    n = config.num_im_train
-    return (SyntheticMVSDataset(num_samples=8, num_views=n, seed=1),
-            SyntheticMVSDataset(num_samples=2, num_views=n, seed=2),
-            SyntheticMVSDataset(num_samples=2, num_views=n, seed=3))
+    if config.dataset == "synthetic":
+        n = config.num_im_train
+        return (SyntheticMVSDataset(num_samples=8, num_views=n, seed=1),
+                SyntheticMVSDataset(num_samples=2, num_views=n, seed=2),
+                SyntheticMVSDataset(num_samples=2, num_views=n, seed=3))
+    from ..data import loaders
+    return loaders.build_datasets(config)
 
 
-def batches(dataset, batch_size: int, order, device):
-    """Collated batches of `dataset` in `order`, as tensors on `device`."""
-    for i in range(0, len(order), batch_size):
-        samples = [dataset[int(j)] for j in order[i:i + batch_size]]
-        yield T.batch_to_device(collate(samples), device)
+def batches(dataset, batch_size: int, order, device, num_workers: int = 0):
+    """Collated batches of `dataset` in `order` (the last one partial),
+    loaded by `num_workers` threads ahead of the step, as tensors on
+    `device`."""
+    for b in iterate_batches(dataset, order, batch_size, collate,
+                             num_workers=num_workers):
+        yield T.batch_to_device(b, device)
 
 
 def run(config: TrainConfig, max_epochs: int | None = None,
@@ -66,6 +71,8 @@ def run(config: TrainConfig, max_epochs: int | None = None,
                          "(reference train.py:298-299)")
     dev = resolve_device(device)
     train_ds, val_ds, test_ds = build_datasets(config)
+    if len(train_ds) == 0:
+        raise ValueError("the training dataset is empty: check --data_path")
     state = T.create_train_state(config, dev)
 
     logdir = Path(config.logdir)
@@ -89,13 +96,21 @@ def run(config: TrainConfig, max_epochs: int | None = None,
         t0 = time.time()
         ep_losses = []
         for i, batch in enumerate(batches(train_ds, config.batch_size, order,
-                                          dev)):
+                                          dev, config.num_workers)):
             state, m = T.train_step(state, batch, config)
-            m.pop("depth_est")
+            depth_est = m.pop("depth_est")
             ep_losses.append(float(m["train_loss"]))
             meters.update(m)
             if (i + 1) % config.print_every == 0:
                 print(f"  iter {i + 1}: {meters.means()}")
+                # the training images and the depth-warped sources
+                # (reference models/trainer.py:78-92, :258-276)
+                logger.plot_ims(training_panels(batch, depth_est),
+                                prefix=f"e{epoch}_")
+                logger.depth_panel(depth_est[0].float().cpu().numpy(),
+                                   float(batch["depth_min"][0, 0]),
+                                   float(batch["depth_max"][0, 0]),
+                                   name=f"e{epoch}_depth_est")
             if config.debug:
                 break
         history["train_loss"].append(float(np.mean(ep_losses)))
@@ -109,13 +124,15 @@ def run(config: TrainConfig, max_epochs: int | None = None,
             save_checkpoint(logdir, epoch, state, config.architecture)
             v_losses = []
             for batch in batches(val_ds, config.batch_size,
-                                 np.arange(len(val_ds)), dev):
+                                 np.arange(len(val_ds)), dev,
+                                 config.num_workers):
                 v_losses.append(float(T.eval_step(state, batch,
                                                   config)["val_loss"]))
                 if config.debug:
                     break
             t_metrics = []
-            for batch in batches(test_ds, 1, np.arange(len(test_ds)), dev):
+            for batch in batches(test_ds, 1, np.arange(len(test_ds)), dev,
+                                 config.num_workers):
                 t_metrics.append({k: float(v) for k, v in
                                   T.test_step(state, batch, config).items()})
                 if config.debug:
@@ -147,13 +164,25 @@ def main(argv=None):
     p.add_argument("--num_depth", type=int, default=192,
                    help="hypotheses of mvsnet and mvsnet-s (vis_mvsnet and "
                         "cvp_mvsnet sweep their own per-level counts)")
-    p.add_argument("--occ_masking", action="store_true")
+    p.add_argument("--upsample_training", action="store_true",
+                   dest="upsample_training")
+    p.add_argument("--no_upsample_training", action="store_false",
+                   dest="upsample_training")
+    p.set_defaults(upsample_training=False)
+    p.add_argument("--occ_masking", action="store_true",
+                   help="unsupervised: every view as the reference in one "
+                        "step, each masked by the others' depths")
+    p.add_argument("--geom_clamping", type=float, default=0.05,
+                   help="the occlusion mask's relative depth agreement")
     sup = p.add_mutually_exclusive_group()
     sup.add_argument("--supervised", dest="supervised", action="store_true")
     sup.add_argument("--unsupervised", dest="supervised",
                      action="store_false")
     p.set_defaults(supervised=True)
     p.add_argument("--logdir", default="trained_models/debug")
+    p.add_argument("--data_path", default=None,
+                   help="dataset root (default: the reference's layouts "
+                        "under datasets/)")
     p.add_argument("--loadckpt", default=None,
                    help="warm-start the model from a torch checkpoint or a "
                         "JAX npz file")
@@ -173,16 +202,15 @@ def main(argv=None):
     p.add_argument("--bf16", action="store_true",
                    help="bf16 network compute (f32 parameters, optimizer "
                         "state and loss)")
+    p.add_argument("--num_workers", type=int, default=4,
+                   help="threads loading samples ahead of the step (0: in "
+                        "line)")
     p.add_argument("--trace", action="store_true")
     p.add_argument("--debug", action="store_true",
                    help="one batch per epoch and phase, one epoch")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; needs a card) or cpu")
     a = p.parse_args(argv)
-    if not a.supervised or a.occ_masking:
-        raise NotImplementedError(
-            "unsupervised and occlusion-masked training are not ported yet "
-            "(ROADMAP Queue 1, item 5)")
     if a.world_size > 1:
         raise NotImplementedError(
             "--world_size > 1 (torch.distributed training) is not ported "
@@ -191,13 +219,20 @@ def main(argv=None):
         raise NotImplementedError(
             "--trace (torch.profiler capture) is not ported yet (ROADMAP "
             "Queue 1, item 7)")
+    if a.supervised and a.dataset == "dtu" and not a.upsample_training:
+        # reference train.py:305-309: DTU's GT depth is stored at 1/4
+        raise SystemExit("dtu supervised training requires "
+                         "--upsample_training (GT is x4 downsampled)")
     config = TrainConfig(
         architecture=a.architecture, dataset=a.dataset,
         supervised=a.supervised, occ_masking=a.occ_masking,
+        upsample_training=a.upsample_training,
         num_im_train=a.num_im_train, batch_size=a.batch_size,
         epochs=a.epochs, lr=a.lr, lrepochs=a.lrepochs, weight_decay=a.wd,
-        seed=a.seed, save_freq=a.save_freq, print_every=a.print_every,
-        logdir=a.logdir, debug=a.debug, num_depth=a.num_depth,
+        geom_clamping=a.geom_clamping, seed=a.seed, save_freq=a.save_freq,
+        print_every=a.print_every, logdir=a.logdir, debug=a.debug,
+        data_path=a.data_path, num_workers=a.num_workers,
+        num_depth=a.num_depth,
         train_dtype="bfloat16" if a.bf16 else "float32", remat=a.remat,
         remat_levels=a.remat_levels, packed_training=a.packed_training)
     return run(config, resume=a.resume, loadckpt=a.loadckpt,

@@ -1,10 +1,10 @@
 """Training logs and stage timing: running means of scalar metrics, a
-JSON-lines log, and the pipeline's per-stage wall clock.
+JSON-lines log with image panels, and the pipeline's per-stage wall clock.
 
-Counterpart of wildmvs/utils/monitor.py's `MeterSet`, `Logger.log` and
-`StageTimer` (reference utils/monitor.py:23-45, utils/trainer.py:18-48).
-Image panels and the profiler trace are not ported yet (ROADMAP Queue 1,
-item 7).
+Counterpart of wildmvs/utils/monitor.py's `MeterSet`, `Logger`,
+`training_panels` and `StageTimer` (reference utils/monitor.py:23-45,
+utils/trainer.py:18-48, models/trainer.py:78-92 and :258-276). The
+profiler trace is not ported yet (ROADMAP Queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import json
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 
@@ -29,6 +30,66 @@ class Logger:
                            for k, v in metrics.items()})
         with open(self.log_file, "a") as f:
             f.write(line + "\n")
+
+    def plot_ims(self, ims: dict, prefix: str = ""):
+        """Save [H, W, C], [H, W] or [B, H, W, C] arrays in [0, 1] (the
+        first of a batch) as `<logdir>/<prefix><name>.jpg` (needs PIL)."""
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise ImportError("Logger.plot_ims writes jpgs with PIL "
+                              "(the `pillow` package)") from e
+        for name, im in ims.items():
+            arr = np.asarray(im)
+            if arr.ndim == 4:
+                arr = arr[0]
+            if arr.ndim == 2:
+                arr = np.repeat(arr[..., None], 3, axis=-1)
+            arr = (np.clip(arr, 0, 1) * 255).astype(np.uint8)
+            Image.fromarray(arr).save(self.logdir / f"{prefix}{name}.jpg")
+
+    def depth_panel(self, depth, depth_min: float, depth_max: float,
+                    name: str = "depth_est"):
+        """A depthmap ([H, W] or the first of [B, H, W]) normalized to the
+        depth range (reference models/trainer.py:86-92)."""
+        d = np.asarray(depth)
+        if d.ndim == 3:
+            d = d[0]
+        norm = np.clip((d - depth_min) / max(depth_max - depth_min, 1e-9),
+                       0, 1)
+        self.plot_ims({name: norm})
+
+
+def training_panels(batch: dict, depth_est=None, ref_idx: int = 0) -> dict:
+    """The training images logged every print_every steps: ref_img,
+    src_img_{k} (reference models/trainer.py:78-85) and, with a predicted
+    depth, the source views warped into the reference by it,
+    `warped_ref{r}src_{i}` (models/trainer.py:258-276), zero outside the
+    source's frustum. `batch` holds tensors or arrays ([B, N, H, W, C]
+    images, K/R/t at image resolution); returns numpy arrays of the first
+    batch element."""
+    from ..geometry.projective import build_proj_matrices
+    from ..losses.photometric import warped_src_views
+    from ..losses.supervised import resize_bilinear
+
+    def f32(x):                                   # on the host, f32
+        return (x.detach().cpu() if torch.is_tensor(x)
+                else torch.as_tensor(np.asarray(x))).float()
+    imgs = f32(batch["imgs"])                     # [B, N, H, W, C]
+    n, h, w = imgs.shape[1:4]
+    src = [i for i in range(n) if i != ref_idx]
+    out = {"ref_img": imgs[0, ref_idx].numpy()}
+    for k, i in enumerate(src):
+        out[f"src_img_{k}"] = imgs[0, i].numpy()
+    if depth_est is not None:
+        d = resize_bilinear(f32(depth_est), (h, w))
+        proj = build_proj_matrices(f32(batch["K"]), f32(batch["R"]),
+                                   f32(batch["t"]))
+        warped, inside = warped_src_views(imgs, d, proj, ref_idx)
+        for k, i in enumerate(src):
+            out[f"warped_ref{ref_idx}src_{i}"] = torch.clamp(
+                warped[0, k] * inside[0, k][..., None], 0.0, 1.0).numpy()
+    return out
 
 
 class MeterSet:
