@@ -24,6 +24,7 @@ from wildmvs.ops.select import masked_median as jax_masked_median
 from wildmvs.train import trainer as JT
 from wildmvs.train.config import TrainConfig as JaxConfig
 from wildmvs.train.torch_import import convert_state_dict
+from wildmvs_torch.data.synthetic import SyntheticMVSDataset, collate
 from wildmvs_torch.infer import Predictor
 from wildmvs_torch.models import build_model
 from wildmvs_torch.models.cvp_mvsnet import cal_depth_hypo
@@ -519,11 +520,32 @@ def test_train_mode_and_unported_options():
                               True) == "warp"
     assert rect.train().resolve_sweep(torch.float32, torch.device("cpu"),
                                       False) == "gather"
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 5"):
-        build_model("cvp_mvsnet", device="cpu", hyp_axis="hyp")
+    # hyp_axis is ported (tests/test_torch_dist.py shards it over two
+    # ranks): outside a mesh the model runs unsharded, bit for bit
+    sharded = build_model("cvp_mvsnet", device="cpu", hyp_axis="hyp")
+    with torch.no_grad():
+        torch.testing.assert_close(
+            sharded.eval()(*args)["depth"],
+            build_model("cvp_mvsnet", device="cpu").eval()(*args)["depth"],
+            rtol=0, atol=0)
+    # remat recomputes the forward in the backward: the same step, loss,
+    # gradients and BatchNorm buffers (the recomputation leaves the
+    # running statistics alone)
     cfg = TrainConfig(architecture="cvp_mvsnet", dataset="synthetic")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
-        T.create_model(dataclasses.replace(cfg, remat=True), "cpu")
+    batch = T.batch_to_device(collate([SyntheticMVSDataset(
+        num_samples=1, num_views=3, height=32, width=32)[0]]), "cpu")
+    steps = []
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        state, m = T.train_step(T.create_train_state(c, "cpu"), batch, c)
+        steps.append((m["train_loss"], state.model))
+    (l0, m0), (l1, m1) = steps
+    torch.testing.assert_close(l1, l0, rtol=0, atol=0)
+    for (n, p0), p1 in zip(m0.named_parameters(), m1.parameters()):
+        torch.testing.assert_close(p1.grad, p0.grad, rtol=1e-6, atol=1e-9,
+                                   msg=n)
+    for (n, b0), b1 in zip(m0.named_buffers(), m1.buffers()):
+        torch.testing.assert_close(b1, b0, rtol=1e-6, atol=0, msg=n)
 
 
 # --- serving and the pipeline ------------------------------------------

@@ -9,6 +9,7 @@ through the exact gather.
 from pathlib import Path
 
 import dataclasses
+import json
 
 import numpy as np
 import jax
@@ -329,10 +330,13 @@ def test_train_mode_options_and_unported_paths(tmp_path):
         model.train()(*args)
         assert len(n) == calls
     cfg = TrainConfig(dataset="synthetic", num_depth=8)
-    for bad in (dict(architecture="cvp_mvsnet", hyp_axis="hyp"),
-                dict(remat=True), dict(hyp_axis="hyp")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.create_model(dataclasses.replace(cfg, **bad), "cpu")
+    # remat and hyp_axis are ported (test_remat_step_equals_plain_step,
+    # tests/test_torch_dist.py): the models take the sharding axis and run
+    # unsharded outside a mesh
+    for arch in ("mvsnet", "vis_mvsnet", "cvp_mvsnet"):
+        model = T.create_model(dataclasses.replace(
+            cfg, architecture=arch, hyp_axis="hyp", remat=True), "cpu")
+        assert model.hyp_axis == "hyp"
     # unsupervised training runs (tests/test_torch_unsup.py holds it to
     # JAX): the photometric loss of a forward, the CLI on synthetic data
     # and on a DTU training layout read from --data_path
@@ -357,10 +361,52 @@ def test_train_mode_options_and_unported_paths(tmp_path):
     assert set(hist["test"][0]) == {"EPE", "1pxError", "3pxError"}
     with pytest.raises(SystemExit, match="upsample_training"):
         cli.main(base + dtu)             # supervised DTU: GT is at 1/4
-    for argv in (["--world_size", "2"], ["--trace"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(argv)
+    # two gloo ranks on the CPU, data-parallel (a sample a rank, BatchNorm
+    # synced), rank 0 logging and checkpointing
+    hist = cli.main(base + ["--world_size", "2", "--dist_backend", "gloo",
+                            "--batch_size", "2", "--logdir",
+                            str(tmp_path / "two")])
+    assert np.isfinite(hist["train_loss"][0] + hist["val_loss"][0])
+    assert set(hist["test"][0]) == {"EPE", "1pxError", "3pxError"}
+    assert (tmp_path / "two" / "model_000000.ckpt").exists()
+    assert len((tmp_path / "two" / "logs.txt").read_text().splitlines()) == 2
+    # --trace: a torch.profiler Chrome trace of the run
+    cli.main(base + ["--trace", "--logdir", str(tmp_path / "trace")])
+    trace = tmp_path / "trace" / "torch_trace" / "rank0.json"
+    assert trace.stat().st_size > 0
+    assert "traceEvents" in json.loads(trace.read_text())
     assert cfg.lr_at_epoch(13) == pytest.approx(1e-4)
+
+
+@pytest.mark.parametrize("occ", [False, True], ids=["supervised", "occ"])
+def test_remat_step_equals_plain_step(occ):
+    """--remat recomputes each forward in the backward
+    (torch.utils.checkpoint): the loss, every gradient and every BatchNorm
+    buffer after one step equal the plain step's. The recomputation runs
+    the train-mode BatchNorm again and must leave the running statistics
+    alone (jax.checkpoint cannot update them twice); under occlusion
+    masking the views after 0 leave them alone in both runs."""
+    cfg = TrainConfig(dataset="synthetic", num_depth=8, supervised=not occ,
+                      occ_masking=occ)
+    batch = T.batch_to_device(synthetic_batch(), "cpu")
+    runs = []
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        state = T.create_train_state(c, "cpu")
+        calls = []
+        hook = state.model.feature.conv0.register_forward_hook(
+            lambda *a: calls.append(1))
+        state, m = T.train_step(state, batch, c)
+        hook.remove()
+        runs.append((m["train_loss"], state.model, len(calls)))
+    (l0, m0, n0), (l1, m1, n1) = runs
+    assert n1 == 2 * n0                     # each forward ran twice
+    torch.testing.assert_close(l1, l0, rtol=0, atol=0)
+    for (n, p0), p1 in zip(m0.named_parameters(), m1.parameters()):
+        torch.testing.assert_close(p1.grad, p0.grad, rtol=1e-6, atol=1e-9,
+                                   msg=n)
+    for (n, b0), b1 in zip(m0.named_buffers(), m1.buffers()):
+        torch.testing.assert_close(b1, b0, rtol=1e-6, atol=0, msg=n)
 
 
 def test_cli_trains_resumes_and_serves_a_checkpoint(tmp_path):

@@ -20,16 +20,22 @@ package so each counterpart is easy to find:
                            warp.cu, footprint.cuh, sampler.cuh; built on
                            first use)
   nn/blocks.py             ConvBnReLU / ConvTransposeBnReLU, BasicBlock /
-                           ResLayer / UNet
+                           ResLayer / UNet, frozen and synced BatchNorm
   models/                  api (registry), MVSNet, Vis-MVSNet and
                            CVP-MVSNet (eval and train forward)
   losses/supervised.py     supervised depth losses, resize_bilinear
   data/synthetic.py        SyntheticMVSDataset, SyntheticSceneDataset,
                            render_rig_plane, collate
   data/ply.py              PLY read / write
-  train/                   config, trainer (steps), metrics, checkpoint,
-                           cli (the training loop), jax_import
-  utils/monitor.py         MeterSet, JSON-lines Logger, StageTimer
+  train/                   config, trainer (steps, remat), metrics,
+                           checkpoint, cli (the training loop, one rank or
+                           N), jax_import
+  dist/mesh.py             torch.distributed: (data, view, hyp) process
+                           groups, use_mesh, slab gathers, gradient sums
+  dist/view_parallel.py    view-parallel occlusion-masked training
+  utils/monitor.py         MeterSet, JSON-lines Logger, StageTimer,
+                           profiler_trace
+  entry.py                 entry() and dryrun_multichip(n)
   infer.py                 Predictor
   pipeline/depthmaps.py    run_depthmaps, eval_model_kwargs
   pipeline/filtering.py    geometric_filter

@@ -10,7 +10,11 @@ top-left crop leaves K unchanged).
     out = pred(imgs, K, R, t, depth_min, depth_max) # imgs [N, H, W, 3]
     out["depth"], out["confidence"]                 # numpy, f32
 
-Runs on the card ("cuda") unless constructed with device="cpu".
+Runs on the card ("cuda") unless constructed with device="cpu". With a
+`mesh` (dist/mesh.py), every rank of it builds the predictor and calls it
+with the same request, which is sharded over the ranks: the depth
+hypotheses over "hyp", Vis-MVSNet's source pairs over "view"; every rank
+returns the whole result.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .dist.mesh import use_mesh
 from .models import build_model
 from .pipeline.depthmaps import eval_model_kwargs
 from .train.jax_import import load_weights
@@ -42,13 +47,16 @@ class Predictor:
         architecture's eval default (`eval_model_kwargs`: the rectified
         sweep "rect" for cvp_mvsnet).
       device: "cuda" (default; raises without a card) or "cpu".
+      mesh: a dist.mesh.Mesh to shard each request over (module
+        docstring), or None.
     """
 
     def __init__(self, model_path: str | Path | None = None,
                  architecture: str | None = None, bf16: bool = True,
                  cvp_nscale: int | None = None, sweep_method: str = "auto",
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         state_dict = None
         if model_path is not None:
             state_dict, ckpt_arch = load_weights(model_path)
@@ -58,8 +66,12 @@ class Predictor:
         self.architecture = architecture
         cfg = eval_model_kwargs(architecture, bf16=bf16,
                                 sweep_method=sweep_method)
-        self.model = build_model(architecture, device=self.device,
-                                 **cfg["kwargs"])
+        kwargs = dict(cfg["kwargs"])
+        if mesh is not None:
+            kwargs["hyp_axis"] = "hyp"
+            if architecture == "vis_mvsnet":
+                kwargs["view_axis"] = "view"
+        self.model = build_model(architecture, device=self.device, **kwargs)
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
         self.model.eval()
@@ -123,7 +135,7 @@ class Predictor:
                 a = np.broadcast_to(a, (nb, n))
             return self._tensor(a)
 
-        with torch.inference_mode():
+        with torch.inference_mode(), use_mesh(self.mesh):
             out = self.model(x, prep(K), prep(R), prep(t),
                              prep_range(depth_min), prep_range(depth_max),
                              reference_frame=reference_frame,

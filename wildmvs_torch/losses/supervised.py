@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..dist.mesh import all_reduce
+
 
 def resize_bilinear(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
     """Bilinear resize, half-pixel centers, no antialiasing (torch
@@ -37,26 +39,35 @@ def downsample_gt(gt: torch.Tensor, mask: torch.Tensor,
     return gt_d, mask_d
 
 
-def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_mean(values: torch.Tensor, mask: torch.Tensor,
+                axis=None) -> torch.Tensor:
     """sum(v*m)/sum(m), or the (zero, graph-keeping) sum for an empty mask
-    (reference models/trainer.py:170-174, models/utils.py:110-119)."""
-    msum = mask.sum()
+    (reference models/trainer.py:170-174, models/utils.py:110-119).
+
+    With a mesh axis (dist/mesh.py) whose ranks each hold rows of one
+    batch, sum(m) is counted over all of them: each rank's result is its
+    share of the whole batch's masked mean, and the shares add up to it
+    (the JAX package's one program takes that mean over the global
+    batch)."""
+    msum = all_reduce(mask.sum(), axis)
     total = (values * mask).sum()
     return torch.where(msum > 0, total / msum.clamp_min(1.0), total)
 
 
 def masked_l1_interval(depth_est: torch.Tensor, gt: torch.Tensor,
-                       mask: torch.Tensor,
-                       depth_interval: torch.Tensor) -> torch.Tensor:
+                       mask: torch.Tensor, depth_interval: torch.Tensor,
+                       axis=None) -> torch.Tensor:
     """Masked mean L1 in units of depth_interval = (max - min) / 128
     (reference models/trainer.py:165-167). depth_est, gt, mask [B, h, w];
-    depth_interval [B]."""
+    depth_interval [B]; `axis` as in masked_mean."""
     l1 = (depth_est - gt).abs() / depth_interval[:, None, None]
-    return masked_mean(l1, mask)
+    return masked_mean(l1, mask, axis)
 
 
 def bayesian_loss(l: torch.Tensor, uncertainty: torch.Tensor,
-                  mask: torch.Tensor) -> torch.Tensor:
+                  mask: torch.Tensor, axis=None) -> torch.Tensor:
     """Bayesian pair loss: masked mean of l * e^-u + u + l (reference
-    models/utils.py:110-119 `bayesian_version_loss`)."""
-    return masked_mean(l * torch.exp(-uncertainty) + uncertainty + l, mask)
+    models/utils.py:110-119 `bayesian_version_loss`); `axis` as in
+    masked_mean."""
+    return masked_mean(l * torch.exp(-uncertainty) + uncertainty + l, mask,
+                       axis)

@@ -38,6 +38,13 @@ Cost-volume backends (`sweep_method`), per level:
             (pipeline/depthmaps.py).
 Views of different sizes take "warp" where "fused" was chosen.
 
+Depth-slab sharding (`hyp_axis`, cvp_mvsnet.py:249-254 and :343-420 of
+the JAX package): inside `dist.mesh.use_mesh` of a mesh whose axis of
+that name spans several ranks, the coarsest level's full sweep is split
+into contiguous slabs of its hypotheses, one a rank ("rect" takes the
+exact "fused" path there), gathered along D before the regularizer; the
+refinement levels (8 per-pixel hypotheses) stay unsharded, as in JAX.
+
 The hypotheses keep their gradient: the regression's depth flows back
 through the upsampled coarser depth as in the JAX package; the sampling
 grid carries none (the kernels get the hypotheses detached).
@@ -53,6 +60,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.mesh import active_axis, gather_slabs, my_slab
 from ..geometry.projective import build_proj_matrices, scale_K
 from ..nn.blocks import (ConvBnReLU, ConvTransposeBnReLU, cast_convs,
                          frozen_running_stats, init_weights)
@@ -193,7 +201,8 @@ class CVPMVSNet(nn.Module):
       nscale: pyramid levels (the forward's `nscale` overrides it; the
         reference trains at 2 and evaluates at 5 on DTU, 4 elsewhere).
       batched_bn: accepted for symmetry (the extractor has no BatchNorm).
-      hyp_axis: depth-slab sharding; not ported yet (raises).
+      hyp_axis: the mesh axis to shard the coarse sweep's hypotheses
+        over (module docstring), or None.
       sweep_method: see the module docstring.
       remat_levels: in train mode, recompute each level's cost volume and
         regularizer in the backward instead of keeping their activations
@@ -207,15 +216,12 @@ class CVPMVSNet(nn.Module):
                  remat_levels: bool = False, packed_training: bool = False,
                  dtype=torch.float32, param_dtype=None, seed: int = 0):
         super().__init__()
-        if hyp_axis is not None:
-            raise NotImplementedError(
-                "hyp_axis (depth-slab sharding) is not ported yet (ROADMAP "
-                "Queue 1, item 5)")
         if sweep_method not in SWEEP_METHODS:
             raise ValueError(f"sweep_method {sweep_method!r} not in "
                              f"{SWEEP_METHODS}")
         self.nscale = nscale
         self.batched_bn = batched_bn
+        self.hyp_axis = hyp_axis
         self.sweep_method = sweep_method
         self.remat_levels = remat_levels
         self.packed_training = packed_training
@@ -242,7 +248,8 @@ class CVPMVSNet(nn.Module):
             method = "warp"
         return method
 
-    def cost_volume(self, flevel, proj, hyp, method: str) -> torch.Tensor:
+    def cost_volume(self, flevel, proj, hyp, method: str,
+                    shard: bool = False) -> torch.Tensor:
         """The variance cost volume [B, D, H, W, C] of one level.
 
         Args:
@@ -250,22 +257,32 @@ class CVPMVSNet(nn.Module):
           proj: [B, N, 4, 4] projections at the level, reference first.
           hyp: [B, D] or [B, D, H, W] f32 hypotheses.
           method: "gather" | "warp" | "fused" | "rect" (`resolve_sweep`).
+          shard: sweep this rank's slab of the hypotheses over an active
+            hyp_axis and gather the slabs.
         """
-        return sweep_cost_volume(flevel[0], flevel[1:],
-                                 [proj[:, i] for i in range(1, len(flevel))],
-                                 proj[:, 0], hyp, method)
+        srcs = flevel[1:]
+        projs = [proj[:, i] for i in range(1, len(flevel))]
+        ax = active_axis(self.hyp_axis) if shard else None
+        if ax is None:
+            return sweep_cost_volume(flevel[0], srcs, projs, proj[:, 0], hyp,
+                                     method)
+        lo, hi = my_slab(hyp.shape[1], ax)
+        cost = sweep_cost_volume(flevel[0], srcs, projs, proj[:, 0],
+                                 hyp[:, lo:hi],
+                                 "fused" if method == "rect" else method)
+        return gather_slabs(cost, ax, 1, hyp.shape[1])
 
     def regress(self, cost: torch.Tensor, hyp: torch.Tensor):
         """(prob [B, D, H, W] f32, depth [B, H, W] f32) of a cost volume."""
         prob = torch.softmax(self.cost_reg_refine(cost).float(), dim=1)
         return prob, depth_regression(prob, hyp)
 
-    def _level(self, flevel, proj, hyp, method):
+    def _level(self, flevel, proj, hyp, method, shard=False):
         """(prob, depth) of one level; with remat_levels in train mode, the
         cost volume and regularizer are recomputed in the backward."""
         if not (self.remat_levels and self.training):
-            return self.regress(self.cost_volume(flevel, proj, hyp, method),
-                                hyp)
+            return self.regress(self.cost_volume(flevel, proj, hyp, method,
+                                                 shard), hyp)
         replay = []
 
         def run(proj, hyp, *flevel):
@@ -274,7 +291,7 @@ class CVPMVSNet(nn.Module):
             replay.append(True)
             with ctx:
                 return self.regress(self.cost_volume(list(flevel), proj, hyp,
-                                                     method), hyp)
+                                                     method, shard), hyp)
         return checkpoint(run, proj, hyp, *flevel, use_reentrant=False)
 
     def forward(self, imgs, K, R, t, depth_min, depth_max,
@@ -329,7 +346,8 @@ class CVPMVSNet(nn.Module):
         steps = torch.arange(nhyp, dtype=torch.float32, device=dmin.device)
         hyp = dmin[:, None] + steps * ((dmax - dmin) / nhyp)[:, None]
         proj = build_proj_matrices(level_K(nscale - 1), Ro, to)
-        prob, depth = self._level(feats[nscale - 1], proj, hyp, method)
+        prob, depth = self._level(feats[nscale - 1], proj, hyp, method,
+                                  shard=True)
         depth_est_list = [depth]
 
         # refinement levels: +-4 hypotheses around the upsampled depth

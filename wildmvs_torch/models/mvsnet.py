@@ -32,6 +32,16 @@ Cost-volume backends (`sweep_method`):
 Views of different sizes go through "warp" where "fused" was chosen: the
 warp kernel takes any source size, one launch per source view.
 
+Depth-slab sharding (`hyp_axis`, the JAX package's mvsnet.py:119-123,
+:279-285): inside `dist.mesh.use_mesh` of a mesh whose axis of that name
+spans several ranks, each rank sweeps its contiguous slab of the
+hypotheses (one "fused" launch at eval, one "warp" launch a source view
+in training; "rect" takes the exact "fused" path there) and the slabs
+are gathered along D, differentiably, before CostRegNet, which every rank
+of the axis runs on the whole volume. The JAX package turns its Pallas
+kernel off under the axis; the port's kernels take a sub-range of the
+hypotheses as they are. Outside such a mesh the model runs unsharded.
+
 Precision: `dtype` is the networks' compute dtype, `param_dtype` (default
 `dtype`) the dtype of the convolution weights, as flax's pair. Serving
 (dtype=param_dtype=bf16) casts the weights once; training (dtype=bf16,
@@ -48,6 +58,7 @@ import contextlib
 import torch
 from torch import nn
 
+from ..dist.mesh import active_axis, gather_slabs, my_slab
 from ..geometry.projective import build_proj_matrices, scale_K
 from ..nn.blocks import (ConvBnReLU, ConvTransposeBnReLU, cast_convs,
                          init_weights)
@@ -189,12 +200,15 @@ class MVSNet(nn.Module):
       batched_bn: featurize all views in one call in train mode too
         (train-mode BatchNorm then normalizes across views; the JAX
         package's option of that name).
+      hyp_axis: the mesh axis to shard the hypotheses over (module
+        docstring), or None.
       seed: seed of the random initial weights.
     """
 
     def __init__(self, aggregation: str = "variance", num_depth: int = 192,
                  sweep_method: str = "auto", dtype=torch.float32,
-                 param_dtype=None, batched_bn: bool = False, seed: int = 0):
+                 param_dtype=None, batched_bn: bool = False,
+                 hyp_axis: str | None = None, seed: int = 0):
         super().__init__()
         agg = aggregation.removeprefix("norm").lstrip("-_") or aggregation
         if agg not in ("variance", "softmin"):
@@ -207,6 +221,7 @@ class MVSNet(nn.Module):
         self.num_depth = num_depth
         self.sweep_method = sweep_method
         self.batched_bn = batched_bn
+        self.hyp_axis = hyp_axis
         self.feature = FeatureNet(dtype)
         self.cost_regularization = CostRegNet(dtype=dtype)
         if agg == "softmin":
@@ -273,11 +288,18 @@ class MVSNet(nn.Module):
         method = self.resolve_sweep(ref_feature.dtype, ref_feature.device,
                                     ragged)
         ref_depths = depth_values[:, reference_frame].contiguous()  # [B, D]
+        hyp = active_axis(self.hyp_axis)
+        sweep_depths = ref_depths
+        if hyp is not None:
+            lo, hi = my_slab(self.num_depth, hyp)
+            sweep_depths = ref_depths[:, lo:hi]
+            method = "fused" if method == "rect" else method
         cost_volume = sweep_cost_volume(
             ref_feature, [feats_l[i] for i in src_idx],
             [proj[:, i] for i in src_idx], proj[:, reference_frame],
-            ref_depths, method, self.agg,
+            sweep_depths, method, self.agg,
             self.temp if self.agg == "softmin" else None)
+        cost_volume = gather_slabs(cost_volume, hyp, 1, self.num_depth)
         cost_reg = self.cost_regularization(cost_volume)[..., 0]
         prob_volume = torch.softmax(cost_reg.float(), dim=1)   # [B, D, H, W]
         depth = depth_regression(prob_volume, ref_depths)

@@ -53,6 +53,24 @@ Cost-volume backends (`sweep_method`):
 The kernels take any source size, so views of different sizes take the
 same backend, one launch per pair.
 
+Sharding (the JAX package's view_axis / hyp_axis, vis_mvsnet.py:145-146,
+:222-238, :360-369, :387-391), inside `dist.mesh.use_mesh` of a mesh
+whose axes of those names span several ranks ("rect" takes the exact
+"gwc" path under either):
+  view_axis  at eval with views of one size, the source pairs split over
+             the ranks, each running its pairs' sweep and pair tail; the
+             stacked fusion's sums (soft, hard: the weighted sum and the
+             weight sum, after a max over the ranks of soft's -u; average:
+             the sum) are added over the ranks by one all_reduce, maxpool
+             and uwta reduce by max / min; the pair depths and
+             uncertainties are gathered, so every rank returns what the
+             unsharded forward does. Train mode and ragged views keep
+             every pair on every rank, as in JAX.
+  hyp_axis   each pair's correlation volume is swept on a contiguous slab
+             of the stage's hypotheses, one a rank, and the slabs are
+             gathered along D (differentiably) before Reg, which every rank
+             of the axis runs on the whole volume.
+
 Precision: `dtype` is the networks' compute dtype, `param_dtype` (default
 `dtype`) the dtype of the convolution weights, as in models/mvsnet.py:
 autocast is confined to the networks, BatchNorm stays f32, geometry is
@@ -62,8 +80,10 @@ f32 (the JAX package keeps them in the compute dtype).
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from ..dist.mesh import active_axis, all_reduce, gather_slabs, my_slab
 from ..geometry.projective import scale_K
 from ..losses.supervised import resize_bilinear
 from ..nn.blocks import UNet, cast_convs, init_weights
@@ -182,11 +202,14 @@ class SingleStage(nn.Module):
     """One cascade stage with per-pair visibility fusion (reference
     model_cas.py:166-420; the JAX package's SingleStage)."""
 
-    def __init__(self, mode: str = "soft", dtype=torch.float32):
+    def __init__(self, mode: str = "soft", dtype=torch.float32,
+                 view_axis: str | None = None, hyp_axis: str | None = None):
         super().__init__()
         if mode not in FUSION_MODES:
             raise NotImplementedError(f"fusion mode: {mode}")
         self.mode = mode
+        self.view_axis = view_axis
+        self.hyp_axis = hyp_axis
         self.reg = Reg(dtype)
         self.reg_pair = RegPair(dtype)
         self.uncert_net = UncertNet(dtype)
@@ -216,7 +239,15 @@ class SingleStage(nn.Module):
         dtype = ref_feat.dtype
 
         uniform = all(s.shape == srcs_feat[0].shape for s in srcs_feat)
-        if method == "rect" and not (uniform
+        stacked = not self.training and uniform
+        hyp = active_axis(self.hyp_axis)
+        view = active_axis(self.view_axis) if stacked else None
+        if view is not None and view.size > n_src:
+            raise ValueError(f"{n_src} source pairs cannot be split over "
+                             f"{view.size} ranks")
+        lo, hi = my_slab(depth_num, hyp)
+        mine = range(*my_slab(n_src, view))
+        if method == "rect" and not (uniform and hyp is None and view is None
                                      and min(srcs_feat[0].shape[1:3]) >= 21):
             # the JAX package's gate (vis_mosaic_supported, uniform
             # stacked pairs); elsewhere the exact kernel path
@@ -233,10 +264,12 @@ class SingleStage(nn.Module):
                 warped = homography_sweep_warp(
                     src, K[:, 0], R[:, 0], t[:, 0], K[:, i + 1], R[:, i + 1],
                     t[:, i + 1], depth_num, depth_start, depth_interval,
-                    (h, w))
+                    (h, w), None if hyp is None else range(lo, hi))
                 return groupwise_correlation(ref_feat[:, None], warped,
                                              GWC_GROUPS)
             s = vis_svals(depth_num, depth_start, depth_interval, (h, w))
+            if hyp is not None:
+                s = s[:, lo:hi].contiguous()
             src16 = src.to(torch.bfloat16).contiguous()
             src_hw = tuple(src.shape[1:3])
             if method == "gwc":
@@ -251,13 +284,18 @@ class SingleStage(nn.Module):
                                          warped.float(),
                                          GWC_GROUPS).to(dtype)
 
-        pairs = [self._tail(cost_of(i), depth_start, depth_interval)
-                 for i in range(n_src)]
-        pair_results = [(est, (unc,)) for _, est, unc in pairs]
-        if not self.training and uniform:
-            fused = self._fuse_stacked(pairs)
+        pairs = [self._tail(gather_slabs(cost_of(i), hyp, 1, depth_num),
+                            depth_start, depth_interval) for i in mine]
+        if view is not None:
+            fused = self._fuse_stacked_sharded(pairs, view, mine.start,
+                                               n_src)
+            ests, uncs = (gather_slabs(torch.stack([p[j] for p in pairs]),
+                                       view, 0, n_src) for j in (1, 2))
+            pair_results = [(ests[i], (uncs[i],)) for i in range(n_src)]
         else:
-            fused = self._fuse_sequential(pairs)
+            pair_results = [(est, (unc,)) for _, est, unc in pairs]
+            fused = (self._fuse_stacked(pairs) if stacked
+                     else self._fuse_sequential(pairs))
         score = self.reg_fuse(fused)[..., 0].float()
         _, est_class, prob_map = soft_argmin(score, window=2)
         est_depth = est_class * depth_interval[:, 0] + depth_start[:, 0]
@@ -285,6 +323,40 @@ class SingleStage(nn.Module):
             return torch.gather(interm_s, 0, sel[None].expand(
                 (1,) + interm_s.shape[1:]))[0].float()
         return interm_s.max(0).values.float()            # maxpool
+
+    def _fuse_stacked_sharded(self, pairs, view, first: int, n_src: int):
+        """`_fuse_stacked` with the pairs split over the `view` ranks, this
+        rank's being pairs first, first + 1, ... (eval only: the
+        reductions carry no gradient)."""
+        interm_s = torch.stack([p[0] for p in pairs], 0)
+        unc_s = torch.stack([p[2] for p in pairs], 0)
+        if self.mode in ("soft", "hard"):
+            if self.mode == "soft":
+                lw = -unc_s[:, :, None, :, :, None]
+                top = all_reduce(lw.max(0, keepdim=True).values, view,
+                                 dist.ReduceOp.MAX)
+                weight = torch.exp(lw - top)
+            else:
+                weight = (unc_s < 0).float()[:, :, None, :, :, None] + 1e-4
+            num = (interm_s * weight).sum(0)
+            den = weight.sum(0)
+            both = all_reduce(torch.cat([num.reshape(-1), den.reshape(-1)]),
+                              view)
+            return (both[:num.numel()].view_as(num)
+                    / both[num.numel():].view_as(den))
+        if self.mode == "average":
+            return all_reduce(interm_s.float().sum(0), view) / n_src
+        if self.mode == "uwta":
+            # the first pair, in pair order, of the least uncertainty
+            least = all_reduce(unc_s.min(0).values, view, dist.ReduceOp.MIN)
+            ids = torch.arange(first, first + len(pairs),
+                               device=unc_s.device).reshape(-1, 1, 1, 1)
+            pick = all_reduce(torch.where(unc_s == least, ids, n_src)
+                              .min(0).values, view, dist.ReduceOp.MIN)
+            sel = (ids == pick).float()[:, :, None, :, :, None]
+            return all_reduce((interm_s.float() * sel).sum(0), view)
+        return all_reduce(interm_s.max(0).values.float(), view,
+                          dist.ReduceOp.MAX)                 # maxpool
 
     def _fuse_sequential(self, pairs):
         """Train mode, or views of different sizes (vis_mvsnet.py:327-364)."""
@@ -329,6 +401,8 @@ class VisMVSNet(nn.Module):
         (depth_max - depth_min) / 128; also the slab re-centring's scales.
       mode: pair fusion, one of FUSION_MODES.
       batched_bn: featurize all views in one call in train mode too.
+      view_axis, hyp_axis: the mesh axes to shard the source pairs and the
+        hypotheses over (module docstring), or None.
       sweep_method: see the module docstring.
       dtype: torch.float32 or torch.bfloat16 compute for the networks.
       param_dtype: dtype of the convolution weights (default `dtype`).
@@ -338,6 +412,7 @@ class VisMVSNet(nn.Module):
     def __init__(self, depth_nums=(32, 16, 8),
                  interval_scales=(4.0, 2.0, 1.0), mode: str = "soft",
                  batched_bn: bool = False, sweep_method: str = "auto",
+                 view_axis: str | None = None, hyp_axis: str | None = None,
                  dtype=torch.float32, param_dtype=None, seed: int = 0):
         super().__init__()
         if sweep_method not in SWEEP_METHODS:
@@ -348,10 +423,12 @@ class VisMVSNet(nn.Module):
         self.mode = mode
         self.batched_bn = batched_bn
         self.sweep_method = sweep_method
+        self.view_axis = view_axis
+        self.hyp_axis = hyp_axis
         self.feat_ext = FeatExt(dtype)
-        self.stage1 = SingleStage(mode, dtype)
-        self.stage2 = SingleStage(mode, dtype)
-        self.stage3 = SingleStage(mode, dtype)
+        self.stage1 = SingleStage(mode, dtype, view_axis, hyp_axis)
+        self.stage2 = SingleStage(mode, dtype, view_axis, hyp_axis)
+        self.stage3 = SingleStage(mode, dtype, view_axis, hyp_axis)
         init_weights(self, torch.Generator().manual_seed(seed))
         cast_convs(self, dtype if param_dtype is None else param_dtype)
 

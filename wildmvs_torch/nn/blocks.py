@@ -13,13 +13,22 @@ Sequential, so `<block>.0.weight`, `<block>.1.*`; BasicBlock
 keyed `{prefix}{scale}_{idx}`).
 
 Tensors are torch's NC(D)HW; the model keeps them in channels-last memory.
+
+Two contexts change how train-mode BatchNorm runs: `frozen_running_stats`
+(normalize, but leave the running statistics alone) and
+`synced_batch_norm` (normalize over the batches of several ranks, the
+data-parallel step's counterpart of JAX's one program over the whole
+batch).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 from torch import nn
+
+from ..dist.mesh import all_reduce_sum
 
 CONVS = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d)
 _CONV = {2: nn.Conv2d, 3: nn.Conv3d}
@@ -198,3 +207,58 @@ def frozen_running_stats(module: nn.Module):
         for m, (momentum, count) in zip(bns, kept):
             m.momentum = momentum
             m.num_batches_tracked.copy_(count)
+
+
+def _synced_bn_forward(bn, axis, x):
+    """Train-mode BatchNorm over the batch of every rank of `axis`: the
+    per-channel sum and count, then the sum of squared deviations, each
+    all-reduced with autograd (so each rank's gradient reaches the others'
+    inputs, and the ranks' gradient mean is the whole batch's gradient).
+    Statistics in f32, the result in the input's dtype; the running
+    statistics take torch's momentum update with the unbiased variance of
+    the whole batch."""
+    if not bn.training:
+        return type(bn).forward(bn, x)
+    dims = [0] + list(range(2, x.dim()))
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    xf = x.float()
+    local = torch.cat([xf.sum(dims), xf.new_full((1,), x.numel()
+                                                 / x.shape[1])])
+    total = all_reduce_sum(local, axis)
+    count = total[-1].detach()
+    mean = total[:-1] / count
+    dev = xf - mean.reshape(shape)
+    var = all_reduce_sum((dev * dev).sum(dims), axis) / count
+    y = dev * torch.rsqrt(var + bn.eps).reshape(shape)
+    if bn.affine:
+        y = y * bn.weight.reshape(shape) + bn.bias.reshape(shape)
+    if bn.track_running_stats:
+        with torch.no_grad():
+            bn.num_batches_tracked.add_(1)
+            m = (1.0 / float(bn.num_batches_tracked) if bn.momentum is None
+                 else bn.momentum)
+            bn.running_mean.mul_(1 - m).add_(m * mean.detach())
+            bn.running_var.mul_(1 - m).add_(
+                m * var.detach() * (count / (count - 1)))
+    return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def synced_batch_norm(module: nn.Module, axis):
+    """Within the block, every train-mode BatchNorm of `module` normalizes
+    over the batches of all ranks of `axis` (a dist.mesh.MeshAxis; None or
+    one rank: nothing changes). torch.nn.SyncBatchNorm takes CUDA tensors
+    only; this one serves the CPU (gloo) as well. The backward must run
+    inside the block too when it recomputes forwards (remat)."""
+    if axis is None or axis.group is None:
+        yield
+        return
+    bns = [m for m in module.modules()
+           if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+    for m in bns:
+        m.forward = functools.partial(_synced_bn_forward, m, axis)
+    try:
+        yield
+    finally:
+        for m in bns:
+            del m.forward

@@ -249,25 +249,28 @@ def homography_sweep_grid_xy(src_hw: tuple[int, int], K_ref, R_ref, t_ref,
 def homography_sweep_warp(src: torch.Tensor, K_ref, R_ref, t_ref, K_src,
                           R_src, t_src, depth_num: int, depth_start,
                           depth_interval,
-                          ref_hw: tuple[int, int] | None = None
-                          ) -> torch.Tensor:
+                          ref_hw: tuple[int, int] | None = None,
+                          steps: range | None = None) -> torch.Tensor:
     """Vis-MVSNet cost-volume warp: [B, D, H, W, C] through per-depth
     homographies (reference model_cas.py:176-187 + homography.py:23-121).
 
     depth_start may be [B, 1, 1, 1] or a per-pixel [B, 1, H, W] map
-    (cascade stages 2-3 re-centre the slab per pixel). Runs in depth slabs
+    (cascade stages 2-3 re-centre the slab per pixel). `steps` (default
+    all D) picks the hypotheses to warp, a contiguous range: the output
+    then holds len(steps) planes. Runs in depth slabs
     (`gather_chunk_planes`), written into one output.
     """
     b, sh, sw, c = src.shape
     if ref_hw is None:
         ref_hw = (sh, sw)
-    out = src.new_empty((b, depth_num) + tuple(ref_hw) + (c,))
-    dc = gather_chunk_planes(depth_num, ref_hw, c, GATHER_CHUNK_BYTES)
-    for d0 in range(0, depth_num, dc):
-        steps = range(d0, min(d0 + dc, depth_num))
+    steps = range(depth_num) if steps is None else steps
+    out = src.new_empty((b, len(steps)) + tuple(ref_hw) + (c,))
+    dc = gather_chunk_planes(len(steps), ref_hw, c, GATHER_CHUNK_BYTES)
+    for d0 in range(0, len(steps), dc):
+        chunk = steps[d0:d0 + dc]
         xn, yn = homography_sweep_grid_xy(
             (sh, sw), K_ref, R_ref, t_ref, K_src, R_src, t_src, depth_num,
-            depth_start, depth_interval, ref_hw, steps)
-        out[:, steps.start:steps.stop] = grid_sample_xy(
+            depth_start, depth_interval, ref_hw, chunk)
+        out[:, d0:d0 + len(chunk)] = grid_sample_xy(
             src, xn, yn, align_corners=True)
     return out

@@ -6,7 +6,7 @@ reference train.py:202-210 writes it. `jax_import.load_weights` reads that
 format, so `Predictor` serves a checkpoint the port trained; it also reads
 a JAX `save_params_npz` file, which warm-starts training (`--loadckpt`).
 (The JAX package writes orbax directories; the port does not read those
-yet, ROADMAP Queue 1, item 7.)
+yet, ROADMAP Queue 1, item 8.)
 """
 from __future__ import annotations
 

@@ -161,13 +161,13 @@ def load_weights(path: str | Path):
     "architecture": ...} or a bare state_dict; the DDP "module." prefix and
     the Vis-MVSNet Frontend's "model." prefix are dropped), whose keys are
     the port's already. Orbax directories are not
-    read yet (ROADMAP Queue 1, item 7).
+    read yet (ROADMAP Queue 1, item 8).
     """
     path = Path(path)
     if path.is_dir():
         raise NotImplementedError(
             f"{path} is a directory (an orbax checkpoint); the port reads "
-            f"npz and torch checkpoints only (ROADMAP Queue 1, item 7)")
+            f"npz and torch checkpoints only (ROADMAP Queue 1, item 8)")
     if path.suffix == ".npz":
         params, stats, meta = load_params_npz(path)
         return state_dict_from_jax(params, stats), meta.get("architecture")

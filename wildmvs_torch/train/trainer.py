@@ -22,7 +22,13 @@ loss sees the other views' depths detached, as the JAX package's does
 (wildmvs/train/trainer.py:224-243; the reference's N ranks and their
 all_gather). The forwards for reference views 1..N-1 leave the BatchNorm
 running statistics as view 0's forward set them (`frozen_running_stats`),
-as the JAX step keeps view 0's.
+as the JAX step keeps view 0's. Over a mesh the same step spreads the
+reference views over the ranks (`train_step`, dist/view_parallel.py).
+
+`remat` recomputes each forward's activations in the backward (`forward`).
+`train_step(..., mesh)` is the data-parallel step (with the hypotheses
+over "hyp" where the model was built so) or, with occ_masking, the
+view-parallel step, over the ranks of a dist/mesh.py mesh.
 
 Model-output contract (models/api.py): depth_est_list entries are [B, h, w]
 (finest first); depth_pair_list entries are lists of
@@ -35,6 +41,8 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..geometry.projective import build_proj_matrices, scale_K
@@ -42,8 +50,10 @@ from ..losses.photometric import (masked_mean, masked_photometric_loss,
                                   photometric_loss)
 from ..losses.supervised import (bayesian_loss, downsample_gt,
                                  masked_l1_interval, resize_bilinear)
+from ..dist.mesh import (Mesh, all_reduce, gather_slabs, my_slab,
+                         sum_gradients, use_mesh)
 from ..models import build_model
-from ..nn.blocks import frozen_running_stats
+from ..nn.blocks import frozen_running_stats, synced_batch_norm
 from .config import TrainConfig
 from .metrics import depth_metrics
 
@@ -67,14 +77,7 @@ def create_model(config: TrainConfig, device=None) -> torch.nn.Module:
     `config.seed`), on `device` ("cuda" unless "cpu" is asked for)."""
     if config.architecture not in ARCHITECTURES:
         raise ValueError(f"unknown architecture: {config.architecture}")
-    if config.remat:
-        raise NotImplementedError(
-            "remat is not ported yet (ROADMAP Queue 1, item 7)")
-    if config.hyp_axis is not None:
-        raise NotImplementedError(
-            "hyp_axis (depth-slab sharding) is not ported yet (ROADMAP "
-            "Queue 1, item 5)")
-    kwargs = {"batched_bn": config.batched_bn}
+    kwargs = {"batched_bn": config.batched_bn, "hyp_axis": config.hyp_axis}
     if config.architecture.startswith("mvsnet"):
         kwargs["num_depth"] = config.num_depth
     if config.architecture == "cvp_mvsnet":
@@ -139,7 +142,8 @@ def forward_args(batch: dict, config: TrainConfig):
 
 
 def loss_from_outputs(outputs: dict, batch: dict, config: TrainConfig,
-                      ref_idx: int = 0, all_depthmaps=None) -> torch.Tensor:
+                      ref_idx: int = 0, all_depthmaps=None,
+                      data_axis=None) -> torch.Tensor:
     """The training loss of one reference view's outputs (reference
     models/trainer.py:106-206), each scale weighted by its factor
     (vis_mvsnet only; 1 otherwise).
@@ -151,7 +155,10 @@ def loss_from_outputs(outputs: dict, batch: dict, config: TrainConfig,
     DSSIM of every pair estimate (never occlusion-masked). `all_depthmaps`
     (one [B, N, H', W'] a scale at loss resolution, every view's depth
     detached) turns on the occlusion-masked loss: this view's own live
-    depth replaces its slice."""
+    depth replaces its slice. With `data_axis` (a dist/mesh.py axis over
+    which the batch's rows are split) every masked mean counts its mask
+    over the whole batch (losses/supervised.masked_mean): the loss is this
+    rank's share of the whole batch's."""
     imgs = batch["imgs"]
     b, n, h, w, c = imgs.shape
     src_idx = [i for i in range(n) if i != ref_idx]
@@ -170,7 +177,7 @@ def loss_from_outputs(outputs: dict, batch: dict, config: TrainConfig,
             gt_d, mask_d = downsample_gt(batch["depth"], batch["mask"],
                                          tuple(d.shape[1:3]))
             loss = loss + factor_at(i) * masked_l1_interval(
-                d, gt_d, mask_d, depth_interval)
+                d, gt_d, mask_d, depth_interval, data_axis)
         for i, pairs in enumerate(outputs["depth_pair_list"]):
             factor = factor_at(i) / (n - 1)
             for dp, (unc,) in pairs:
@@ -179,7 +186,8 @@ def loss_from_outputs(outputs: dict, batch: dict, config: TrainConfig,
                 gt_d, mask_d = downsample_gt(batch["depth"], batch["mask"],
                                              tuple(dp.shape[1:3]))
                 l1 = (dp - gt_d).abs() / depth_interval[:, None, None]
-                loss = loss + factor * bayesian_loss(l1, unc, mask_d)
+                loss = loss + factor * bayesian_loss(l1, unc, mask_d,
+                                                     data_axis)
         return loss
 
     # unsupervised: the photometric DSSIM at loss resolution, in f32
@@ -205,7 +213,8 @@ def loss_from_outputs(outputs: dict, batch: dict, config: TrainConfig,
             perm = [ref_idx] + src_idx
             ssim, mask = photometric_loss(loss_imgs[:, perm], d_up,
                                           proj[:, perm])
-        loss = loss + factor_at(i) * masked_mean(ssim, mask.to(ssim.dtype))
+        loss = loss + factor_at(i) * masked_mean(
+            ssim, mask.to(ssim.dtype), data_axis)
     for i, pairs in enumerate(outputs["depth_pair_list"]):
         factor = factor_at(i) / (n - 1)
         for pair_id, (dp, (unc,)) in enumerate(pairs):
@@ -217,7 +226,8 @@ def loss_from_outputs(outputs: dict, batch: dict, config: TrainConfig,
                                           proj[:, pair_idx])
             u = resize_bilinear(unc.float(), (lh, lw))[:, None]
             loss = loss + factor * bayesian_loss(ssim, u,
-                                                 mask.to(ssim.dtype))
+                                                 mask.to(ssim.dtype),
+                                                 data_axis)
     return loss
 
 
@@ -235,41 +245,123 @@ def _occ_masked(config: TrainConfig) -> bool:
     return config.occ_masking and not config.supervised
 
 
-def _all_views_loss(model, batch: dict, config: TrainConfig):
-    """The occlusion-masked loss averaged over every reference view, and
-    view 0's outputs. In train mode the forwards after view 0's leave the
-    BatchNorm running statistics as view 0's set them."""
+def forward(model, args, reference_frame: int, config: TrainConfig):
+    """The model's forward on reference view `reference_frame`; with
+    config.remat in train mode its activations are recomputed in the
+    backward instead of kept (torch.utils.checkpoint, non-reentrant; the
+    JAX package's jax.checkpoint over the forward, trainer.py:212-219).
+    The recomputation leaves the BatchNorm running statistics alone
+    (`frozen_running_stats`): the forward updated them once already."""
+    if not (config.remat and model.training):
+        return model(*args, reference_frame=reference_frame)
+    calls = []
+
+    def run(*args):
+        ctx = (frozen_running_stats(model) if calls
+               else contextlib.nullcontext())
+        calls.append(1)
+        with ctx:
+            return model(*args, reference_frame=reference_frame)
+    return checkpoint(run, *args, use_reentrant=False)
+
+
+def _all_views_loss(model, batch: dict, config: TrainConfig, view=None):
+    """The occlusion-masked loss averaged over this rank's reference views
+    (every view without a `view` axis; over one, view rank v's contiguous
+    slab of them), and its first view's outputs. The depths at loss
+    resolution are gathered over `view`, detached. In train mode the
+    forwards after this rank's first leave the BatchNorm running
+    statistics as the first set them."""
     args = forward_args(batch, config)
     n, h, w = batch["imgs"].shape[1:4]
+    refs = range(*my_slab(n, view))
     outs = []
-    for r in range(n):
-        frozen = (frozen_running_stats(model) if r and model.training
+    for k, r in enumerate(refs):
+        frozen = (frozen_running_stats(model) if k and model.training
                   else contextlib.nullcontext())
         with frozen:
-            outs.append(model(*args, reference_frame=r))
-    all_d = _per_scale_gather(outs, (h // config.output_down,
-                                     w // config.output_down))
-    total = sum(loss_from_outputs(outs[r], batch, config, r,
-                                  all_depthmaps=all_d) for r in range(n))
-    return total / n, outs[0]
+            outs.append(forward(model, args, r, config))
+    all_d = [gather_slabs(d, view, 1, n) for d in _per_scale_gather(
+        outs, (h // config.output_down, w // config.output_down))]
+    total = sum(loss_from_outputs(out, batch, config, r, all_depthmaps=all_d)
+                for out, r in zip(outs, refs))
+    return total / len(refs), outs[0]
 
 
-def train_step(state: TrainState, batch: dict, config: TrainConfig):
+@torch.no_grad()
+def _share_running_stats(model: torch.nn.Module, mesh: Mesh) -> None:
+    """Every rank takes view rank 0's BatchNorm running statistics, averaged
+    over `data` (JAX: pmean over data of the psum over view of the stats
+    masked to view shard 0, wildmvs/dist/view_parallel.py:97-109)."""
+    data, view = mesh.axis("data"), mesh.axis("view")
+    if data.group is None and view.group is None:
+        return
+    stats = [t for m in model.modules()
+             if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+             for t in (m.running_mean, m.running_var)]
+    flat = torch.cat([t.reshape(-1) for t in stats])
+    flat = all_reduce(flat, data) / data.size
+    if view.group is not None:
+        dist.broadcast(flat, src=view.ranks[0], group=view.group)
+    offset = 0
+    for t in stats:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+
+
+def train_step(state: TrainState, batch: dict, config: TrainConfig,
+               mesh: Mesh | None = None):
     """One optimizer step (train-mode BatchNorm, whose running statistics
     the forward updates): on reference view 0, or with occ_masking on
     every view, the loss averaged over them. The gradients stay on the
     parameters until the next step. Returns (state, {"train_loss",
-    "depth_est"}) as device tensors."""
+    "depth_est"}) as device tensors.
+
+    With a `mesh` (dist/mesh.py) the step runs on every rank of it, each
+    on its rows of the batch (`shard_batch` over "data"); the gradients
+    are summed over every rank, each having back-propagated its share, and
+    the loss returned is the whole step's. Two steps, as in the JAX
+    package:
+
+      * without occ_masking, JAX's step on a data-sharded batch: BatchNorm
+        normalizes over the whole batch (`synced_batch_norm` over
+        "data"), every masked mean counts its mask over the whole batch
+        (loss_from_outputs' data_axis), and a model built with hyp_axis
+        sweeps its slab of the hypotheses. The gradient is the whole
+        batch's.
+      * with occ_masking, the view-parallel step (dist/view_parallel.py,
+        JAX's make_view_parallel_train_step): view rank v takes its slab
+        of the reference views, the depths are gathered over "view", each
+        data rank normalizes and takes the loss over its own rows, and
+        the gradient and loss are the mean over the ranks (DDP's). The
+        running statistics kept are reference view 0's, averaged over
+        "data". With data 1 it is the single-program step."""
     model = state.model
     model.train()
     state.optimizer.zero_grad(set_to_none=True)
-    if _occ_masked(config):
-        loss, out = _all_views_loss(model, batch, config)
-    else:
-        out = model(*forward_args(batch, config), reference_frame=0)
-        loss = loss_from_outputs(out, batch, config, 0)
-    loss.backward()
+    # each rank back-propagates its loss / copies, and the gradients are
+    # summed: view-parallel, the mean over the ranks; otherwise each data
+    # rank's share of the whole batch's loss, held alike by its view x hyp
+    # ranks
+    view = data = None
+    copies = 1
+    if mesh is not None and _occ_masked(config):
+        view, copies = mesh.axis("view"), mesh.size
+    elif mesh is not None:
+        data, copies = mesh.axis("data"), mesh.size // mesh.shape["data"]
+    with use_mesh(mesh), synced_batch_norm(model, data):
+        if _occ_masked(config):
+            loss, out = _all_views_loss(model, batch, config, view)
+        else:
+            out = forward(model, forward_args(batch, config), 0, config)
+            loss = loss_from_outputs(out, batch, config, 0, data_axis=data)
+        (loss / copies).backward()
+    if mesh is not None and mesh.size > 1:
+        sum_gradients(model, mesh.axis("all"))
+        loss = all_reduce(loss.detach(), mesh.axis("all")) / copies
     state.optimizer.step()
+    if view is not None:
+        _share_running_stats(model, mesh)
     state.step += 1
     return state, {"train_loss": loss.detach(),
                    "depth_est": out["depth"].detach()}

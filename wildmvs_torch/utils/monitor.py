@@ -2,9 +2,9 @@
 JSON-lines log with image panels, and the pipeline's per-stage wall clock.
 
 Counterpart of wildmvs/utils/monitor.py's `MeterSet`, `Logger`,
-`training_panels` and `StageTimer` (reference utils/monitor.py:23-45,
-utils/trainer.py:18-48, models/trainer.py:78-92 and :258-276). The
-profiler trace is not ported yet (ROADMAP Queue 1, item 7).
+`training_panels`, `StageTimer` and `profiler_trace` (reference
+utils/monitor.py:23-45, utils/trainer.py:18-48, models/trainer.py:78-92
+and :258-276).
 """
 from __future__ import annotations
 
@@ -156,3 +156,26 @@ class StageTimer:
                     "count": self.counts[k],
                     "mean_s": round(self.totals[k] / self.counts[k], 4)}
                 for k in self.totals}
+
+
+@contextlib.contextmanager
+def profiler_trace(logdir, enabled: bool = True):
+    """Capture a torch.profiler trace of the block (host and, with a card,
+    device activity) into `<logdir>/torch_trace/rank<r>.json`, a Chrome
+    trace (chrome://tracing, Perfetto); r is the torch.distributed rank (0
+    without a process group). Counterpart of the JAX package's jax.profiler
+    capture (wildmvs/utils/monitor.py:143-154)."""
+    if not enabled:
+        yield
+        return
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    path = Path(logdir) / "torch_trace" / f"rank{rank}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(str(path))
