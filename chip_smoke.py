@@ -99,6 +99,23 @@ JAX or of the JAX package. Phases, each of which stops the run if it fails:
      occlusion-masked step's peak memory lower. Every time here is a
      one-card gloo figure: it says nothing of NCCL or of scaling over
      cards.
+ 14. classic and the offline tools (`phase14_classic_and_tools`, the
+     paths "classic" and "depthmap_eval"), on BenchScene at 1184x1600 N5:
+     (a) the classic ZNCC sweep at the JAX defaults (D192, window 7, half
+     resolution): ms a depthmap (median of 3 after a warm-up), peak GiB,
+     median relative depth error against GT under 3 %, confidence in
+     [0, 1]; at 296x400 D48 on the card (PyTorch's default TF32
+     settings) against the CPU within CLASSIC_LIMITS; (b)
+     run_pipeline(architecture="classic", compute_metrics=True) within
+     RECON_BOUNDS["classic"]; (a) and (b) launch no kernel; (c)
+     depthmap_eval.evaluate with the trained Vis asset (12 gwc launches
+     a sample), EPE within 1e-3 of the metrics recomputed in numpy from
+     run_depthmaps' npz, two shards merged within 1e-6 of the unsharded
+     run; (d) the Gipuma and COLMAP workspaces exported from (b)'s
+     caches, their depths read back equal to the masked depths. The
+     orbax reader, matching and MegaDepth preprocessing are not run: the
+     card's machine has no tensorstore and no h5py, and the last two are
+     host code.
 
 Phase 1 also holds sweep_warp_backward to its plain version ([D], [D,H,W]
 and the behind-camera rig) and times it against torch's
@@ -155,8 +172,12 @@ from wildmvs_torch.ops import sweep_kernels as sk
 from wildmvs_torch.ops.plane_sweep import (homography_sweep_warp,
                                            plane_sweep_warp)
 from wildmvs_torch.ops.volumes import groupwise_correlation
-from wildmvs_torch.pipeline.depthmaps import run_depthmaps
-from wildmvs_torch.pipeline.reconstruction import run_pipeline
+from wildmvs_torch.data.codecs import read_colmap_array, read_dmb
+from wildmvs_torch.pipeline import depthmap_eval, export
+from wildmvs_torch.pipeline.classic import classic_depthmap
+from wildmvs_torch.pipeline.depthmaps import get_mask_invalid, run_depthmaps
+from wildmvs_torch.pipeline.reconstruction import (load_network,
+                                                   run_pipeline)
 from wildmvs_torch.train import trainer as T
 from wildmvs_torch.train.checkpoint import save_checkpoint
 from wildmvs_torch.train.config import TrainConfig
@@ -2446,7 +2467,8 @@ class BenchScene:
     i being view i against the others, with GT depths (for the oracle) and
     `gt_points`: view 0's GT depth at every second pixel, unprojected to
     the world (mm), for the chamfer metrics at `gt_resolution` 1 mm (a
-    10 mm cutoff)."""
+    10 mm cutoff). A sample's `mask` is its GT depth inside the depth
+    range (the depthmap benchmark's)."""
 
     gt_resolution = 1.0
 
@@ -2468,10 +2490,13 @@ class BenchScene:
 
     def __getitem__(self, i: int) -> dict:
         order = [i] + [j for j in range(self.n) if j != i]
+        depth = self.depths[i]
+        mask = (depth >= self.dmin[i]) & (depth <= self.dmax[i])
         return {"imgs": self.imgs[order], "K": self.K[order],
                 "R": self.R[order], "t": self.t[order],
                 "depth_min": self.dmin[order], "depth_max": self.dmax[order],
-                "depth": self.depths[i], "filename": f"view_{i:04d}",
+                "depth": depth, "mask": mask.astype(np.float32),
+                "filename": f"view_{i:04d}",
                 "src_filenames": [f"view_{j:04d}" for j in order[1:]]}
 
 
@@ -2483,7 +2508,13 @@ class BenchScene:
 #: from the plane's GT on this scene (phase 10, the exact path), so the
 #: network, not the pipeline, sets its chamfer; the filter keeps points
 #: whose views agree within 1 % of the depth (6.5 mm at 650 mm): 8 mm.
-RECON_BOUNDS = {"vis_mvsnet": (10_000, 8.0), "oracle": (100_000, 1.0)}
+#: Classic (phase 14b, written before its first run on the card): the
+#: ZNCC sweep at half resolution with D192 over 510 mm (2.67 mm a
+#: hypothesis, refined by the parabola) on a textured plane: the trained
+#: Vis asset's floor, 10 000 points and 8 mm, which the filter's 1 %
+#: agreement (6.5 mm) and the cutoff (10 mm) bound as they do for Vis.
+RECON_BOUNDS = {"vis_mvsnet": (10_000, 8.0), "oracle": (100_000, 1.0),
+                "classic": (10_000, 8.0)}
 
 
 def phase11_reconstruction():
@@ -2906,6 +2937,267 @@ def phase13_distribution(dev, single_step_ms):
         remat=remat)
 
 
+# ---------------------------------------------------------------------------
+# Classic and the offline tools
+# ---------------------------------------------------------------------------
+
+#: the classic sweep held to another run of it (tests/test_torch_classic.py
+#: against JAX on the CPU, phase 14 the card against the CPU): depth in
+#: hypothesis intervals, confidence absolute. The box filter's sums round
+#: in another order on each side, ZNCC's variances are differences of
+#: near-equal means, and the parabola's offset divides by the peak's
+#: curvature, so last-bit differences move the sub-hypothesis depth: the
+#: JAX function against itself, on the 64x96 scene's images moved by one
+#: ulp, moves it by 0.0044 interval at the median and 0.068 at the 99th
+#: percentile at D192, half resolution (0.0009 and 0.053 at D64, full
+#: resolution), and a near-tie of two peaks flips the argmax (a flip moves
+#: the depth by up to 2 intervals and more).
+CLASSIC_LIMITS = dict(depth_median=0.05, depth_q99=0.5, flips=5e-3,
+                      flip_intervals=2.0, conf_atol=1e-4, conf_share=0.99,
+                      conf_max=1e-3)
+
+
+def classic_agreement(got, want, interval: float) -> dict:
+    """(depth, confidence) of two classic runs -> their differences; fails
+    unless they are within CLASSIC_LIMITS. interval: the hypothesis step
+    (depth_max - depth_min) / (num_depth - 1)."""
+    lim = CLASSIC_LIMITS
+    dd = np.abs(np.asarray(got[0], np.float64)
+                - np.asarray(want[0], np.float64)) / interval
+    dc = np.abs(np.asarray(got[1], np.float64)
+                - np.asarray(want[1], np.float64))
+    stats = dict(depth_median=float(np.median(dd)),
+                 depth_q99=float(np.quantile(dd, 0.99)),
+                 flips=float((dd >= lim["flip_intervals"]).mean()),
+                 conf_share=float((dc <= lim["conf_atol"]).mean()),
+                 conf_max=float(dc.max()))
+    ok = (stats["depth_median"] <= lim["depth_median"]
+          and stats["depth_q99"] <= lim["depth_q99"]
+          and stats["flips"] <= lim["flips"]
+          and stats["conf_share"] >= lim["conf_share"]
+          and stats["conf_max"] <= lim["conf_max"])
+    check(ok, f"classic runs disagree: {stats} (limits {lim})")
+    return stats
+
+
+#: phase 14a: the classic sweep at the JAX defaults (the configuration
+#: users run), and the small shape it is run at on the card and the CPU
+CLASSIC = dict(num_depth=192, window=7, downscale=2)
+CLASSIC_SMALL = dict(h=296, w=400, f=EVAL["f"] / 4, num_depth=48)
+CLASSIC_REL_DEPTH = 0.03        # the JAX package's bound against GT
+EVAL_EPE_REL = 1e-3             # phase 14c: evaluate vs the npz
+MERGE_REL = 1e-6                # phase 14c: merged shards vs unsharded
+SAMPLE_KEYS = ("imgs", "K", "R", "t", "depth_min", "depth_max")
+
+
+@contextlib.contextmanager
+def torch_default_precision():
+    """PyTorch's own defaults for TF32 inside (cuDNN convolutions in TF32,
+    matmuls in f32), which main() turns off for its f32 comparisons."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def sample_tensors(sample, dev):
+    return [torch.as_tensor(np.asarray(sample[k], np.float32),
+                            device=dev)[None] for k in SAMPLE_KEYS]
+
+
+def resize_bilinear_np(x: np.ndarray, hw) -> np.ndarray:
+    """[h, w] -> hw in float64: bilinear, half-pixel centres, no
+    antialiasing, sources clamped at the edges (the benchmark's resize,
+    written out in numpy)."""
+    def axis(n_in, n_out):
+        c = np.maximum((np.arange(n_out) + 0.5) * n_in / n_out - 0.5, 0.0)
+        i0 = np.minimum(np.floor(c).astype(np.int64), n_in - 1)
+        return i0, np.minimum(i0 + 1, n_in - 1), c - i0
+    y0, y1, fy = axis(x.shape[0], hw[0])
+    x0, x1, fx = axis(x.shape[1], hw[1])
+    x = x.astype(np.float64)
+    top = x[y0][:, x0] * (1 - fx) + x[y0][:, x1] * fx
+    bottom = x[y1][:, x0] * (1 - fx) + x[y1][:, x1] * fx
+    return top * (1 - fy)[:, None] + bottom * fy[:, None]
+
+
+def npz_metrics(ds, depth_dir: Path) -> dict:
+    """EPE / 1pxError / 3pxError of the stage-1 npz files, in numpy: each
+    depthmap resized to its GT, both over (depth_max - depth_min) / 128,
+    averaged over the mask, then over the samples."""
+    sums = {"EPE": 0.0, "1pxError": 0.0, "3pxError": 0.0}
+    for i in range(len(ds)):
+        s = ds[i]
+        with np.load(depth_dir / f"{s['filename']}_out.npz") as z:
+            est = resize_bilinear_np(z["depthmap"], s["depth"].shape)
+        step = (float(s["depth_max"][0]) - float(s["depth_min"][0])) / 128.0
+        err = np.abs(est / step - s["depth"].astype(np.float64) / step)
+        m = s["mask"] > 0.5
+        sums["EPE"] += err[m].mean()
+        sums["1pxError"] += (err[m] > 1.0).mean()
+        sums["3pxError"] += (err[m] > 3.0).mean()
+    return {k: v / len(ds) for k, v in sums.items()}
+
+
+def phase14a_classic(dev, ds):
+    """The classic sweep on BenchScene's view 0 at 1184x1600 N5 and the JAX
+    defaults: ms a depthmap (median of 3 after a warm-up, card-synced),
+    peak GiB, one profiled call, the median relative depth error against GT on the mask, the
+    confidence in [0, 1]; then at 296x400 D48 on the card (under PyTorch's
+    default TF32 settings) and on the CPU, held to CLASSIC_LIMITS."""
+    s = ds[0]
+    args = sample_tensors(s, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    with torch.inference_mode():
+        for _ in range(4):
+            t0 = time.perf_counter()
+            depth, conf = classic_depthmap(*args, **CLASSIC)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    with torch.inference_mode():
+        prof = profile_step(lambda: classic_depthmap(*args, **CLASSIC),
+                            "phase14a classic")
+    depth, conf = depth[0].cpu().numpy(), conf[0].cpu().numpy()
+    d = CLASSIC["downscale"]
+    check(depth.shape == (EVAL["h"] // d, EVAL["w"] // d)
+          and np.isfinite(depth).all(), f"classic depth {depth.shape}")
+    check(0.0 <= conf.min() and conf.max() <= 1.0,
+          f"classic confidence in [{conf.min()}, {conf.max()}]")
+    gt = s["depth"][::d, ::d]
+    mask = s["mask"][::d, ::d] > 0.5
+    rel = float(np.median(np.abs(depth - gt)[mask] / gt[mask]))
+    check(rel < CLASSIC_REL_DEPTH,
+          f"classic median relative depth error {rel}")
+
+    small = BenchScene(n=EVAL["n"], h=CLASSIC_SMALL["h"],
+                       w=CLASSIC_SMALL["w"], f=CLASSIC_SMALL["f"])[0]
+    kw = dict(CLASSIC, num_depth=CLASSIC_SMALL["num_depth"])
+    runs = []
+    with torch.inference_mode(), torch_default_precision():
+        for where in (dev, torch.device("cpu")):
+            out = classic_depthmap(*sample_tensors(small, where), **kw)
+            runs.append([o[0].cpu().numpy() for o in out])
+    step = float(small["depth_max"][0] - small["depth_min"][0]) / (
+        kw["num_depth"] - 1)
+    card_cpu = classic_agreement(runs[0], runs[1], step)
+    return dict(ms=float(np.median(times[1:])), ms_runs=times[1:],
+                warmup_ms=times[0], peak_gib=peak, **prof,
+                median_rel_depth_err=rel,
+                confidence=[float(conf.min()), float(conf.max())],
+                card_vs_cpu_296x400_d48=card_cpu)
+
+
+def phase14_classic_and_tools(dev):
+    """Phase 14 on BenchScene (1184x1600, 5 views): (a) the classic sweep
+    (`phase14a_classic`); (b) run_pipeline(architecture="classic",
+    compute_metrics=True) held to RECON_BOUNDS["classic"]; (a) and (b)
+    launch no kernel; (c) `depthmap_eval.evaluate` with the trained Vis
+    asset over the 5 samples, its EPE within EVAL_EPE_REL of the metrics
+    recomputed in numpy from the npz that run_depthmaps writes with the
+    model Predictor loads, and two shards merged by `merge_parts` within
+    MERGE_REL of the unsharded run; (d) the Gipuma and COLMAP workspaces
+    exported from (b)'s caches, their depths read back through the codecs
+    equal to the masked depths. Returns (the classic path's launch counts,
+    the benchmark's, stats)."""
+    ds = BenchScene(n=EVAL["n"], h=EVAL["h"], w=EVAL["w"], f=EVAL["f"])
+    torch.cuda.synchronize()
+    sk.reset_launch_counts()
+    stats = {"classic": phase14a_classic(dev, ds)}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        res = run_pipeline(ds, tmp / "classic", architecture="classic",
+                           compute_metrics=True)
+        torch.cuda.synchronize()
+        classic_counts = sk.launch_counts()
+        check(sum(classic_counts.values()) == 0,
+              f"the classic path launched {classic_counts}")
+        m = res["metrics"]
+        min_points, bound_mm = RECON_BOUNDS["classic"]
+        check(res["num_points"] >= min_points,
+              f"classic: {res['num_points']} points")
+        check(m["chamfer_pred_to_gt"] <= bound_mm
+              and m["chamfer_gt_to_pred"] <= bound_mm,
+              f"classic: chamfer {m} above {bound_mm} mm")
+        stats["reconstruction"] = dict(
+            stage_ms={k: v["total_s"] * 1e3
+                      for k, v in res["stage_timings"].items()},
+            num_points=res["num_points"], **m)
+
+        # (c) the depthmap benchmark against the stage-1 npz
+        depth_dir = tmp / "vis_depthmaps"
+        run_depthmaps(ds, Predictor(VIS_ASSET).model, depth_dir)
+        want = npz_metrics(ds, depth_dir)
+        model, _, _ = load_network(VIS_ASSET, None, ds[0], "synthetic")
+        torch.cuda.synchronize()
+        sk.reset_launch_counts()
+        full = depthmap_eval.evaluate(ds, model)
+        torch.cuda.synchronize()
+        eval_counts = sk.launch_counts()
+        check(eval_counts["sweep_gwc"] == 12 * ds.n,
+              f"evaluate skipped sweep_gwc: {eval_counts}")
+        rel = abs(full["EPE"] - want["EPE"]) / want["EPE"]
+        check(full["count"] == ds.n and rel <= EVAL_EPE_REL,
+              f"evaluate {full} against the npz {want}")
+        base = tmp / "parts" / "vis_5"
+        base.parent.mkdir()
+        for i in range(2):
+            part = depthmap_eval.evaluate(ds, model, process_index=i,
+                                          process_count=2)
+            (base.parent / f"vis_5.part{i}.json").write_text(
+                json.dumps(part))
+        merged = depthmap_eval.merge_parts(base)
+        merge_err = max(abs(merged[k] - full[k]) / max(abs(full[k]), 1e-12)
+                        for k in ("EPE", "1pxError", "3pxError"))
+        check(merged["count"] == ds.n and merge_err <= MERGE_REL,
+              f"merged shards {merged} against {full}")
+        stats["depthmap_eval"] = dict(
+            **{k: full[k] for k in ("EPE", "1pxError", "3pxError",
+                                    "seconds")},
+            npz=want, epe_rel_err=rel, merge_rel_err=merge_err)
+        del model
+
+        # (d) the exporters on (b)'s caches
+        cache = tmp / "classic" / "IntRes"
+        d_dir = cache / "depthmaps" / "scene"
+        f_dir = cache / "geometric_filtering" / "scene"
+        t0 = time.perf_counter()
+        gip = export.export_gipuma_workspace(ds, d_dir, tmp / "gipuma",
+                                             filter_dir=f_dir, downscale=2)
+        col = export.export_colmap_workspace(ds, d_dir, tmp / "colmap",
+                                             filter_dir=f_dir)
+        export_ms = (time.perf_counter() - t0) * 1e3
+        kept = 0
+        for i in range(ds.n):
+            name = f"view_{i:04d}"
+            with np.load(d_dir / f"{name}_out.npz") as z, \
+                    np.load(f_dir / f"{name}_out.npz") as g:
+                want_d = z["depthmap"].astype(np.float32)
+                want_d[get_mask_invalid(z["probability"], 0.8,
+                                        g["geo_mask"])] = 0.0
+            got_dmb = read_dmb(gip / f"{export.GIPUMA_PREFIX}{name}"
+                               / "disp.dmb")
+            got_col = read_colmap_array(
+                col / "stereo" / "depth_maps" / f"{name}.jpg.geometric.bin")
+            check(np.array_equal(got_dmb, want_d)
+                  and np.array_equal(got_col, want_d),
+                  f"{name}: exported depths differ from the masked depth")
+            kept += int((want_d > 0).sum())
+        stats["export"] = dict(ms=export_ms, valid_pixels=kept)
+    print(f"phase14 classic {EVAL['h']}x{EVAL['w']} N{ds.n} "
+          f"D{CLASSIC['num_depth']} w{CLASSIC['window']} "
+          f"ds{CLASSIC['downscale']}: " + json.dumps(stats), flush=True)
+    return classic_counts, eval_counts, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -2969,13 +3261,21 @@ def main() -> int:
     print(f"phase13 took {distributed['phase_s']:.1f} s of "
           f"{time.perf_counter() - t0:.1f} s since the build began",
           flush=True)
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    classic_counts, eval_counts, tools = phase14_classic_and_tools(dev)
+    tools["phase_s"] = time.perf_counter() - t14
+    print(f"phase14 took {tools['phase_s']:.1f} s of "
+          f"{time.perf_counter() - t0:.1f} s since the build began",
+          flush=True)
 
     # launches: each path's own, counted from 0 just before its run
     paths = {"mvsnet_serving": counts, "mvsnet_training": train_counts,
              "vis_serving": vis_counts, "vis_training": vis_train_counts,
              "cvp_serving": cvp_counts, "cvp_training": cvp_train_counts,
              "rect_serving": rect_counts, "reconstruction": recon_counts,
-             "unsup_training": unsup_counts, "distributed": dist_counts}
+             "unsup_training": unsup_counts, "distributed": dist_counts,
+             "classic": classic_counts, "depthmap_eval": eval_counts}
     for name, k in kernels.items():
         k["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         k["launches"] = sum(c[name] for c in paths.values())
@@ -2995,7 +3295,8 @@ def main() -> int:
                       "rect_serving": rect_serving,
                       "reconstruction": reconstruction,
                       "unsup_training": unsup_training,
-                      "distributed": distributed, "card": card}),
+                      "distributed": distributed,
+                      "classic_and_tools": tools, "card": card}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -134,8 +134,15 @@ def test_checkpoint_formats(tmp_path, variance_weights):
     for k, v in model.state_dict().items():
         torch.testing.assert_close(pred.model.state_dict()[k], v, rtol=0,
                                    atol=0)
-    with pytest.raises(NotImplementedError, match="orbax"):
-        Predictor(tmp_path, device="cpu")
+    # a logdir serves its newest checkpoint; a directory that is neither a
+    # logdir nor an orbax checkpoint is refused
+    newest = Predictor(tmp_path, device="cpu", bf16=False)
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(newest.model.state_dict()[k], v, rtol=0,
+                                   atol=0)
+    (tmp_path / "empty").mkdir()
+    with pytest.raises(FileNotFoundError, match="orbax"):
+        Predictor(tmp_path / "empty", device="cpu")
     assert eval_model_kwargs("cvp_mvsnet")["kwargs"]["sweep_method"] == \
         "rect"
     with pytest.raises(ValueError, match="architecture"):
@@ -167,7 +174,8 @@ def test_port_imports_neither_jax_nor_wildmvs():
         "                                              'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'wildmvs')\n"
+        "       ('jax', 'jaxlib', 'flax', 'orbax', 'wildmvs', 'tensorstore',\n"
+        "        'PIL', 'h5py')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print(' '.join(names))\n")
@@ -187,4 +195,9 @@ def test_port_imports_neither_jax_nor_wildmvs():
             "wildmvs_torch.data.codecs", "wildmvs_torch.data.colmap_model",
             "wildmvs_torch.data.colmap_utils", "wildmvs_torch.data.prefetch",
             "wildmvs_torch.losses.ssim",
-            "wildmvs_torch.losses.photometric"} <= names
+            "wildmvs_torch.losses.photometric",
+            "wildmvs_torch.pipeline.classic",
+            "wildmvs_torch.pipeline.depthmap_eval",
+            "wildmvs_torch.pipeline.export", "wildmvs_torch.data.matching",
+            "wildmvs_torch.data.preprocess_megadepth",
+            "wildmvs_torch.train.orbax_read"} <= names

@@ -290,8 +290,8 @@ def test_run_pipeline_oracle_matches_jax(dataset, tmp_path):
     again = run_pipeline(dataset, tmp_path / "port", architecture="oracle",
                          device="cpu")
     assert again["num_points"] == got["num_points"]
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        run_pipeline(dataset, tmp_path / "c", architecture="classic",
+    with pytest.raises(ValueError, match="unknown architecture"):
+        run_pipeline(dataset, tmp_path / "c", architecture="patchmatch",
                      device="cpu")
 
 

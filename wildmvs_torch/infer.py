@@ -27,6 +27,7 @@ from .device import resolve_device
 from .dist.mesh import use_mesh
 from .models import build_model
 from .pipeline.depthmaps import eval_model_kwargs
+from .train.checkpoint import resolve_checkpoint
 from .train.jax_import import load_weights
 
 
@@ -34,9 +35,10 @@ class Predictor:
     """A loaded eval network with input normalization.
 
     Args:
-      model_path: an npz (JAX `save_params_npz`) or torch checkpoint file;
-        None for seeded random weights (seed 0; smoke and performance
-        runs).
+      model_path: an npz (JAX `save_params_npz`) or torch checkpoint
+        file, a JAX orbax checkpoint directory, or a logdir (its newest
+        checkpoint); None for seeded random weights (seed 0; smoke and
+        performance runs).
       architecture: mvsnet | mvsnet-s | vis_mvsnet | cvp_mvsnet; read
         from the checkpoint if None.
       bf16: run the networks in bf16 (default) or f32.
@@ -59,7 +61,8 @@ class Predictor:
         self.mesh = mesh
         state_dict = None
         if model_path is not None:
-            state_dict, ckpt_arch = load_weights(model_path)
+            state_dict, ckpt_arch = load_weights(
+                resolve_checkpoint(model_path))
             architecture = architecture or ckpt_arch
         if architecture is None:
             raise ValueError("need model_path or architecture")

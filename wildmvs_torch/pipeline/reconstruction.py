@@ -13,6 +13,8 @@ Usage:
       --debug --device cpu
   python -m wildmvs_torch.pipeline.reconstruction --dataset synthetic \
       --architecture oracle --compute_metrics
+  python -m wildmvs_torch.pipeline.reconstruction --dataset synthetic \
+      --classic --compute_metrics
   python -m wildmvs_torch.pipeline.reconstruction --dataset dtu \
       --data_path <root> --scene scan1 --model <checkpoint>
 
@@ -33,9 +35,10 @@ import torch
 from ..data.ply import ply_xyz, write_ply
 from ..device import resolve_device
 from ..models import build_model
-from ..train.checkpoint import latest_checkpoint
+from ..train.checkpoint import resolve_checkpoint
 from ..train.jax_import import load_weights
 from ..utils.monitor import StageTimer
+from .classic import run_classic_depthmaps
 from .depthmaps import eval_model_kwargs, get_mask_invalid, run_depthmaps
 from .filtering import geometric_filter
 from .fusion import fuse_depthmaps
@@ -47,9 +50,10 @@ def load_network(model_dir: str | Path | None, architecture: str | None,
     """Build the eval network (eval_model_kwargs) and load its weights.
 
     Args:
-      model_dir: a torch checkpoint file, a directory of `model_*.ckpt`
-        (the newest is read), a JAX `save_params_npz` file, or None for
-        seeded random weights (seed 0).
+      model_dir: a torch checkpoint file, a JAX `save_params_npz` file or
+        orbax checkpoint directory, a logdir of them (the newest
+        `model_*.ckpt` or `model_*/` is read), or None for seeded random
+        weights (seed 0).
       architecture: used when the checkpoint names none.
       sample: an eval sample (its image sizes set cvp_mvsnet's levels).
       dataset_name: "dtu" evaluates cvp_mvsnet at 5 levels, others at 4.
@@ -59,9 +63,7 @@ def load_network(model_dir: str | Path | None, architecture: str | None,
     dev = resolve_device(device)
     state_dict = None
     if model_dir is not None:
-        path = Path(model_dir)
-        path = (latest_checkpoint(path) or path) if path.is_dir() else path
-        state_dict, ckpt_arch = load_weights(path)
+        state_dict, ckpt_arch = load_weights(resolve_checkpoint(model_dir))
         architecture = ckpt_arch or architecture
     if architecture is None:
         raise ValueError("need a checkpoint that names its architecture, or "
@@ -111,8 +113,9 @@ def run_pipeline(dataset, work_dir: Path, model_dir: str | None = None,
     files under work_dir (IntRes/depthmaps, IntRes/geometric_filtering,
     Points/<scene>.ply).
 
-    architecture: a model's name, or "oracle" (the samples' GT depths as
-    the depthmaps: stages 2-4 without a network). override: recompute
+    architecture: a model's name, "classic" (the ZNCC plane sweep of
+    pipeline/classic.py, at half resolution) or "oracle" (the samples' GT
+    depths as the depthmaps: stages 2-4 without a network). override: recompute
     every stage, invalidating the downstream caches first. process_index /
     process_count > 1: this process's shard of stage 1 only (rerun
     unsharded to filter, fuse and evaluate from the caches). debug: one
@@ -148,9 +151,11 @@ def run_pipeline(dataset, work_dir: Path, model_dir: str | None = None,
                 np.savez_compressed(f, depthmap=s["depth"],
                                     probability=np.ones_like(s["depth"]))
     elif architecture == "classic":
-        raise NotImplementedError(
-            "the classic ZNCC plane sweep (wildmvs/pipeline/classic.py) is "
-            "not ported yet (ROADMAP Queue 1, item 8)")
+        # the non-learned ZNCC sweep (the reference's --colmap patch-match
+        # role, reconstruction_pipeline.py:30-31)
+        run_classic_depthmaps(dataset, depth_dir, override=override,
+                              debug=debug, process_index=process_index,
+                              process_count=process_count, device=dev)
     else:
         model, architecture, cvp_nscale = load_network(
             model_dir, architecture, sample0, dataset_name,
@@ -318,13 +323,15 @@ def main(argv=None):
     p.add_argument("--model", default=None,
                    help="a checkpoint file or directory, or a JAX npz")
     p.add_argument("--architecture", default="mvsnet",
-                   help="model architecture, or 'oracle' (GT depths)")
+                   help="model architecture, 'classic' (the ZNCC sweep) or "
+                        "'oracle' (GT depths)")
     p.add_argument("--sweep_method", default="auto",
                    choices=["auto", "rect", "gather", "fused"],
                    help="cost-volume backend ('auto': each architecture's "
                         "eval default, the rectified sweep for cvp_mvsnet)")
     p.add_argument("--classic", action="store_true",
-                   help="the classic ZNCC plane sweep (not ported yet)")
+                   help="the classic ZNCC plane sweep instead of a network "
+                        "(the reference's --colmap baseline)")
     p.add_argument("--data_path", default=None)
     p.add_argument("--work_dir", default="recon_out")
     p.add_argument("--nviews", type=int, default=5,

@@ -1,5 +1,5 @@
-"""Carry weights into the port: JAX variables, npz checkpoints, torch
-checkpoints.
+"""Carry weights into the port: JAX variables, npz and orbax checkpoints,
+torch checkpoints.
 
 The JAX package keeps flax parameter trees; the port keeps the reference's
 torch state_dict keys. `state_dict_from_jax` maps one onto the other with
@@ -43,6 +43,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from .orbax_read import load_orbax_params
 
 _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
               "var": "running_var"}
@@ -154,20 +156,20 @@ def load_params_npz(path: str | Path):
 
 
 def load_weights(path: str | Path):
-    """A checkpoint file -> (state_dict, architecture or None).
+    """A checkpoint -> (state_dict, architecture or None).
 
-    `.npz`: a JAX `save_params_npz` file, carried by `state_dict_from_jax`.
+    A directory: an orbax checkpoint of the JAX package
+    (`orbax_read.load_orbax_params`, needs tensorstore). `.npz`: a JAX
+    `save_params_npz` file. Both are carried by `state_dict_from_jax`.
     Any other file: a reference torch checkpoint ({"model": state_dict,
     "architecture": ...} or a bare state_dict; the DDP "module." prefix and
     the Vis-MVSNet Frontend's "model." prefix are dropped), whose keys are
-    the port's already. Orbax directories are not
-    read yet (ROADMAP Queue 1, item 8).
+    the port's already.
     """
     path = Path(path)
     if path.is_dir():
-        raise NotImplementedError(
-            f"{path} is a directory (an orbax checkpoint); the port reads "
-            f"npz and torch checkpoints only (ROADMAP Queue 1, item 8)")
+        params, stats, meta = load_orbax_params(path)
+        return state_dict_from_jax(params, stats), meta.get("architecture")
     if path.suffix == ".npz":
         params, stats, meta = load_params_npz(path)
         return state_dict_from_jax(params, stats), meta.get("architecture")
