@@ -70,7 +70,11 @@ JAX or of the JAX package. Phases, each of which stops the run if it fails:
      5's, an occlusion-masked eval step; then 4 steps each of Vis-MVSNet
      occlusion-masked (18 + 18 launches a step) and CVP-MVSNet nscale 2
      unmasked (4 + 4). The DTU loader is not driven here: the card's
-     machine has PIL and cv2 but not h5py (README).
+     machine has PIL and cv2 but not h5py (README). 12c
+     (`phase12c_default_flags`): phase 12a's step under PyTorch's default
+     TF32 flags, the flags `train.cli --unsupervised` runs with, against
+     both flags off: DSSIM maps, loss and feature gradients within
+     DEFAULT_FLAGS_REL and phase 12a's limits.
  13. distribution on the one card (the eighth path, "distributed";
      `phase13_distribution`): ranks spawned as processes on cuda:0 over
      gloo (the kernels built once before the spawn). (a) View-parallel
@@ -116,6 +120,14 @@ JAX or of the JAX package. Phases, each of which stops the run if it fails:
      orbax reader, matching and MegaDepth preprocessing are not run: the
      card's machine has no tensorstore and no h5py, and the last two are
      host code.
+ 15. the native host helpers (`phase15_native`, wildmvs_torch/cpp, built
+     by main before phase 1): which library built (the k-d tree must; the
+     image module must where libjpeg's and libpng's headers exist); the
+     DTU dedup and the NN distances of the metrics stage on phase 11's
+     oracle cloud and on a 5 M-point dense cloud, native against cKDTree
+     (keep masks equal, distances within 1e-12), ms of each; the
+     BlendedMVS loader and MegaDepth's resize, ms a sample beside phase
+     5's step, native against PIL where the image module linked.
 
 Phase 1 also holds sweep_warp_backward to its plain version ([D], [D,H,W]
 and the behind-camera rig) and times it against torch's
@@ -141,8 +153,9 @@ kernel's own count of staged stages is printed beside the share that the
 plain rule (sweep_footprints) predicts. Phase 3 times the fused kernel at
 the eval shapes by CUDA-graph replay too.
 
-Prints the card, the kernels' register/spill summary and one line per
-phase, then a `kernels` JSON line and, last, the device JSON line.
+Prints the card, the kernels' register/spill summary, the native
+library's variant and one line per phase, then a `kernels` JSON line and,
+last, the device JSON line.
 """
 import contextlib
 import dataclasses
@@ -159,6 +172,8 @@ import torch
 import torch.nn.functional as F
 
 from wildmvs_torch import _build
+from wildmvs_torch import cpp as native
+from wildmvs_torch.data import loaders
 from wildmvs_torch.data.synthetic import (SyntheticMVSDataset, collate,
                                           render_rig_plane)
 from wildmvs_torch.dist.mesh import make_mesh, shard_batch, spawn
@@ -172,8 +187,13 @@ from wildmvs_torch.ops import sweep_kernels as sk
 from wildmvs_torch.ops.plane_sweep import (homography_sweep_warp,
                                            plane_sweep_warp)
 from wildmvs_torch.ops.volumes import groupwise_correlation
-from wildmvs_torch.data.codecs import read_colmap_array, read_dmb
-from wildmvs_torch.pipeline import depthmap_eval, export
+from wildmvs_torch.data.codecs import (read_colmap_array, read_dmb,
+                                       write_cam_txt, write_pfm)
+from wildmvs_torch.losses import photometric as photometric_module
+from wildmvs_torch.losses.ssim import dssim
+from wildmvs_torch.losses.supervised import resize_bilinear
+from wildmvs_torch.data.ply import ply_xyz
+from wildmvs_torch.pipeline import depthmap_eval, export, metrics3d
 from wildmvs_torch.pipeline.classic import classic_depthmap
 from wildmvs_torch.pipeline.depthmaps import get_mask_invalid, run_depthmaps
 from wildmvs_torch.pipeline.reconstruction import (load_network,
@@ -2060,8 +2080,8 @@ def phase12_unsup_training(dev, supervised_peak_gib):
     peak memory beside phase 5's, and an occlusion-masked eval step (3
     fused launches). 12b: Vis-MVSNet (32, 16, 8) occlusion-masked (18 + 18
     a step) and CVP-MVSNet nscale 2 unmasked (4 + 4), UNSUP_STEPS steps
-    each. Returns the summed counts of the step loops (the
-    "unsup_training" path) and the results."""
+    each. 12c: `phase12c_default_flags`. Returns the summed counts of the
+    step loops (the "unsup_training" path) and the results."""
     n = HEADLINE["n"]
     batch = headline_batch(dev)
     cfg = occ_mvsnet_config()
@@ -2126,7 +2146,116 @@ def phase12_unsup_training(dev, supervised_peak_gib):
         total = {k: total[k] + counts[k] for k in total}
         del state
         torch.cuda.empty_cache()
+    results["default_flags"] = phase12c_default_flags(dev)
     return total, results
+
+
+#: phase 12c's limits, written before its first run on the card: under
+#: PyTorch's default TF32 flags the DSSIM maps within DEFAULT_FLAGS_REL of
+#: their scale of the maps with both flags off (f32 rounding of the
+#: 121-tap window sums, magnified by the cancellation in sigma^2 =
+#: blur(x^2) - mu^2, stays far below it; TF32's 10-bit mantissa does not),
+#: the loss within DEFAULT_FLAGS_REL relative, and the six warps' feature
+#: gradients within phase 12a's limits of each other (2^-7 of the scale in
+#: max, 2^-9 in mean: the backward's atomics add in a varying order, so two
+#: runs under one setting differ too).
+DEFAULT_FLAGS_REL = 1e-5
+
+
+def record_dssim(rec: list):
+    """Patch the photometric losses' dssim so that each call appends its
+    map, detached, to rec. Returns the undo."""
+    real = photometric_module.dssim
+
+    def recording(img1, img2, *args, **kwargs):
+        out = real(img1, img2, *args, **kwargs)
+        rec.append(out.detach().clone())
+        return out
+
+    photometric_module.dssim = recording
+    return lambda: setattr(photometric_module, "dssim", real)
+
+
+def flagged_step(dev, batch, cfg, default_flags: bool):
+    """One occlusion-masked MVSNet step from phase 12a's seeded weights,
+    under PyTorch's default TF32 flags or with both off (main's setting).
+    Returns (loss, the step's DSSIM maps, its warps' source-feature
+    gradients)."""
+    state = T.create_train_state(cfg, dev)
+    maps, warps = [], []
+    undo_maps, undo_warps = record_dssim(maps), record_warps(warps)
+    try:
+        with (torch_default_precision() if default_flags
+              else contextlib.nullcontext()):
+            state, m = T.train_step(state, batch, cfg)
+            loss = m["train_loss"].item()
+    finally:
+        undo_maps()
+        undo_warps()
+    return loss, maps, [e["df"].float() for e in warps]
+
+
+def rel_max(got, want) -> float:
+    return (got - want).abs().max().item() / want.abs().max().item()
+
+
+def phase12c_default_flags(dev):
+    """Phase 12a's step under the flags `train.cli --unsupervised` runs
+    with (PyTorch's defaults: cuDNN convolutions may take TF32) against
+    both flags off: the step with flags off, with the defaults, and with
+    flags off again (the run-to-run spread). The DSSIM maps, the loss and
+    the six warps' feature gradients within DEFAULT_FLAGS_REL and phase
+    12a's gradient limits; the DSSIM alone on two views at the loss
+    resolution (128x160) under both settings, and its ms (forward and
+    backward) under the defaults."""
+    batch = headline_batch(dev)
+    cfg = occ_mvsnet_config()
+    off = flagged_step(dev, batch, cfg, False)
+    on = flagged_step(dev, batch, cfg, True)
+    again = flagged_step(dev, batch, cfg, False)
+    check(len(on[1]) == len(off[1]) == len(again[1]) > 0
+          and len(on[2]) == len(off[2]) == 6,
+          f"phase12c recorded {len(off[1])}/{len(on[1])} DSSIM maps, "
+          f"{len(off[2])}/{len(on[2])} warps")
+    res = dict(
+        dssim_rel=max(rel_max(a, b) for a, b in zip(on[1], off[1])),
+        dssim_rel_rerun=max(rel_max(a, b) for a, b in zip(again[1], off[1])),
+        loss_rel=abs(on[0] - off[0]) / abs(off[0]),
+        loss_rel_rerun=abs(again[0] - off[0]) / abs(off[0]))
+    for tag, run in (("grad", on), ("grad_rerun", again)):
+        res[tag + "_max_rel"] = max(rel_max(a, b)
+                                    for a, b in zip(run[2], off[2]))
+        res[tag + "_mean_rel"] = max(
+            (a - b).abs().mean().item() / b.abs().max().item()
+            for a, b in zip(run[2], off[2]))
+    h, w = HEADLINE["h"] // 4, HEADLINE["w"] // 4
+    views = resize_bilinear(batch["imgs"][0], (h, w))
+    a, b = views[0:1], views[1:2].clone().requires_grad_()
+    with torch.no_grad():
+        want = dssim(a, b)
+        with torch_default_precision():
+            got = dssim(a, b)
+    res["dssim_alone_rel"] = rel_max(got, want)
+    with torch_default_precision():
+        res["dssim_ms"] = cuda_ms(lambda: dssim(a, b).sum().backward(), 20)
+    print(f"phase12c default TF32 flags vs both off (off again): DSSIM maps "
+          f"{res['dssim_rel']:.3g} ({res['dssim_rel_rerun']:.3g}) of their "
+          f"scale, alone {res['dssim_alone_rel']:.3g}; loss "
+          f"{res['loss_rel']:.3g} ({res['loss_rel_rerun']:.3g}) relative; "
+          f"feature gradients max {res['grad_max_rel']:.3g} "
+          f"({res['grad_rerun_max_rel']:.3g}), mean "
+          f"{res['grad_mean_rel']:.3g} ({res['grad_rerun_mean_rel']:.3g}) "
+          f"of their scale; limits {DEFAULT_FLAGS_REL:g}, {DEFAULT_FLAGS_REL:g}"
+          f", {2 ** -7:.4g} and {2 ** -9:.4g}; DSSIM {h}x{w} forward and "
+          f"backward {res['dssim_ms']:.4f} ms (defaults)", flush=True)
+    check(res["dssim_rel"] <= DEFAULT_FLAGS_REL
+          and res["dssim_alone_rel"] <= DEFAULT_FLAGS_REL,
+          "the default TF32 flags move the DSSIM map")
+    check(res["loss_rel"] <= DEFAULT_FLAGS_REL,
+          "the default TF32 flags move the unsupervised loss")
+    check(res["grad_max_rel"] <= 2 ** -7 and res["grad_mean_rel"] <= 2 ** -9,
+          "the default TF32 flags move the feature gradients")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2521,9 +2650,12 @@ def phase11_reconstruction():
     """run_pipeline end to end on the card over BenchScene (1184x1600, 5
     views): the trained Vis asset (depthmaps -> geometric filter -> fusion
     -> PLY -> chamfer against the plane's GT points), then the oracle (GT
-    depths at full resolution) through stages 2-4."""
+    depths at full resolution) through stages 2-4. The metrics stage takes
+    the native k-d tree (cpp/kdtree.cpp). Returns (the Vis run's launch
+    counts, stats, the oracle's fused cloud and the GT points for phase
+    15)."""
     ds = BenchScene(n=5, h=EVAL["h"], w=EVAL["w"], f=EVAL["f"])
-    stats, counts = {}, None
+    stats, counts, oracle_points = {}, None, None
     with tempfile.TemporaryDirectory() as tmp:
         for arch in ("vis_mvsnet", "oracle"):
             model_dir = VIS_ASSET if arch == "vis_mvsnet" else None
@@ -2555,7 +2687,9 @@ def phase11_reconstruction():
             check(Path(res["ply"]).stat().st_size > 0, "no PLY")
             stats[arch] = dict(stage_ms=stages, num_points=res["num_points"],
                                **m)
-    return counts, stats
+            if arch == "oracle":
+                oracle_points = ply_xyz(res["ply"])
+    return counts, stats, (oracle_points, ds.gt_points)
 
 
 # ---------------------------------------------------------------------------
@@ -3198,6 +3332,214 @@ def phase14_classic_and_tools(dev):
     return classic_counts, eval_counts, stats
 
 
+# ---------------------------------------------------------------------------
+# The native host helpers
+# ---------------------------------------------------------------------------
+
+DEDUP_RADIUS = 0.2              # the DTU protocol's dedup radius (mm)
+#: phase 15's synthetic dense cloud: a wavy surface (amplitude 10 mm) over
+#: 224 x 224 mm with 0.05 mm of noise, ~100 points a mm^2 (~12 within the
+#: dedup radius), GT on a 1 mm grid of it (the chamfer cutoff 10 mm)
+DENSE_CLOUD = dict(n=5_000_000, side=224.0, noise=0.05)
+#: native decode and resize against PIL: the JAX package's bounds
+#: (tests/test_native_image.py): the two libjpeg builds' IDCTs may differ
+#: by a level; PIL resizes through 8 bits and clips Lanczos's overshoot
+IMAGE_LIMITS = dict(decode_max=1.5 / 255, resize_mean=1 / 255,
+                    resize_max=0.08)
+LOADER_SAMPLES = 3              # BlendedMVS samples a path (3 views each)
+
+
+@contextlib.contextmanager
+def scipy_only():
+    """metrics3d with the native tree unavailable: its cKDTree paths (the
+    port's metrics before the native module)."""
+    def unavailable(*args, **kwargs):
+        raise RuntimeError("native tree switched off")
+
+    saved = metrics3d.NativeKDTree, metrics3d._native_dedup
+    metrics3d.NativeKDTree = metrics3d._native_dedup = unavailable
+    try:
+        yield
+    finally:
+        metrics3d.NativeKDTree, metrics3d._native_dedup = saved
+
+
+def host_ms(fn):
+    """(fn(), its host-clock ms)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+@contextlib.contextmanager
+def native_io(enabled: bool):
+    """The loaders' native decode on or off (WILDMVS_NATIVE_IO)."""
+    import os
+    saved = os.environ.get("WILDMVS_NATIVE_IO")
+    os.environ["WILDMVS_NATIVE_IO"] = "1" if enabled else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["WILDMVS_NATIVE_IO"]
+        else:
+            os.environ["WILDMVS_NATIVE_IO"] = saved
+
+
+def dense_cloud(seed: int = 0):
+    """DENSE_CLOUD's points and its 1 mm GT grid, float64 [N, 3]."""
+    n, side, noise = (DENSE_CLOUD[k] for k in ("n", "side", "noise"))
+
+    def surface(x, y):
+        return 10.0 * np.sin(x / 25.0) * np.cos(y / 35.0)
+
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0.0, side, (n, 2))
+    pts = np.column_stack([xy, surface(xy[:, 0], xy[:, 1])
+                           + rng.normal(0.0, noise, n)])
+    gx, gy = np.meshgrid(np.arange(0.5, side, 1.0), np.arange(0.5, side, 1.0))
+    gt = np.column_stack([gx.ravel(), gy.ravel(),
+                          surface(gx.ravel(), gy.ravel())])
+    return pts, gt
+
+
+def native_metrics(name: str, pts: np.ndarray, gt: np.ndarray,
+                   resolution: float) -> dict:
+    """The metrics on one cloud, native against cKDTree: the dedup
+    (reduce_pts, the DTU path) keep masks equal; eval_yfcc's NN distances
+    both ways (the phase 11 / 14b metrics stage) within 1e-12 of cKDTree's
+    clipped at the cutoff, and none beyond it; ms of each path."""
+    cutoff = 10.0 * resolution
+    (_, keep), dedup_ms = host_ms(
+        lambda: metrics3d.reduce_pts(pts, DEDUP_RADIUS))
+    raw, nn_ms = host_ms(lambda: metrics3d.eval_yfcc(pts, gt, resolution))
+    with scipy_only():
+        (_, keep_ref), dedup_ref_ms = host_ms(
+            lambda: metrics3d.reduce_pts(pts, DEDUP_RADIUS))
+        ref, nn_ref_ms = host_ms(
+            lambda: metrics3d.eval_yfcc(pts, gt, resolution))
+    nn_err = max(np.abs(raw[k] - np.minimum(ref[k], cutoff)).max()
+                 for k in ref)
+    res = dict(points=len(pts), gt_points=len(gt), kept=int(keep.sum()),
+               dedup_ms=dedup_ms, dedup_ckdtree_ms=dedup_ref_ms,
+               nn_ms=nn_ms, nn_ckdtree_ms=nn_ref_ms, nn_max_err=nn_err)
+    print(f"phase15 {name}: {len(pts)} points, GT {len(gt)}: dedup r "
+          f"{DEDUP_RADIUS} keeps {res['kept']}, native {dedup_ms:.1f} ms, "
+          f"cKDTree loop {dedup_ref_ms:.1f} ms; NN both ways (cutoff "
+          f"{cutoff:g}) native {nn_ms:.1f} ms, cKDTree {nn_ref_ms:.1f} ms, "
+          f"max difference {nn_err:.3g}", flush=True)
+    check(np.array_equal(keep, keep_ref),
+          f"{name}: the native dedup's keep mask differs from the loop's")
+    check(nn_err <= 1e-12 and all((raw[k] <= cutoff).all() for k in raw),
+          f"{name}: native NN distances differ from cKDTree's by {nn_err}")
+    return res
+
+
+def write_blended(root: Path, views: int, h: int, w: int):
+    """A BlendedMVS scene (JPEG + PFM + Yao cams, the loader's layout):
+    a smooth field plus noise, as a JPEG of a photograph holds."""
+    from PIL import Image
+    scene = root / "scene"
+    (scene / "cams").mkdir(parents=True)
+    (scene / "blended_images").mkdir()
+    (scene / "rendered_depth_maps").mkdir()
+    lines = [str(views)]
+    for v in range(views):
+        srcs = [u for u in range(views) if u != v]
+        lines += [str(v), f"{len(srcs)} " + " ".join(f"{u} 10.0"
+                                                      for u in srcs)]
+    (scene / "cams" / "pair.txt").write_text("\n".join(lines) + "\n")
+    K = np.array([[600.0, 0, w / 2], [0, 600.0, h / 2], [0, 0, 1]])
+    rng = np.random.default_rng(2)
+    yy, xx = np.mgrid[0:h, 0:w]
+    for v in range(views):
+        name = f"{v:08d}"
+        ext = np.eye(4)
+        ext[0, 3] = 0.1 * v
+        write_cam_txt(scene / "cams" / f"{name}_cam.txt", ext, K, 2.0, 0.05,
+                      128, 2.0 + 128 * 0.05)
+        base = 127 + 100 * (np.sin(xx / 17.0 + v) * np.cos(yy / 23.0))
+        img = np.clip(base[..., None] + rng.normal(0, 20, (h, w, 3)), 0,
+                      255).astype(np.uint8)
+        Image.fromarray(img).save(scene / "blended_images" / f"{name}.jpg",
+                                  quality=95)
+        write_pfm(scene / "rendered_depth_maps" / f"{name}.pfm",
+                  rng.uniform(2.0, 8.0, (h, w)).astype(np.float32))
+    return ["scene"]
+
+
+def native_images(step_ms: float, native_decode: bool) -> dict:
+    """The loaders on the card's host: BlendedMVS val samples (576x768
+    JPEG decode, PFM, crop; no augmentation) and read_images with
+    MegaDepth's min-side 512 resize on the same files, ms a sample beside
+    phase 5's step; through PIL, and, where the image module linked,
+    natively too, held to PIL within IMAGE_LIMITS."""
+    paths_taken = (True, False) if native_decode else (False,)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        scenes = write_blended(root, views=LOADER_SAMPLES, h=576, w=768)
+        ds = loaders.BlendedMVSDataset(root, scenes, "val", 3)
+        paths = sorted((root / "scene" / "blended_images").glob("*.jpg"))
+        out = {}
+        for enabled in paths_taken:
+            with native_io(enabled):
+                ds[0]                                   # warm the path
+                samples, ms = host_ms(lambda: [ds[i] for i in range(len(ds))])
+                resized, rms = host_ms(
+                    lambda: loaders.read_images(paths, (512, 512)))
+            out[enabled] = (samples, ms / len(ds), resized, rms / len(paths))
+    pil, pil_ms, pil_r, pil_rms = out[False]
+    res = dict(sample_pil_ms=pil_ms, resize_pil_ms=pil_rms, step_ms=step_ms)
+    text = (f"PIL {pil_ms:.2f} ms a sample, {pil_rms:.2f} ms a resized "
+            f"view")
+    if native_decode:
+        nat, nat_ms, nat_r, nat_rms = out[True]
+        diffs = [np.abs(a - b) for (a, _), (b, _) in zip(nat_r, pil_r)]
+        res.update(sample_ms=nat_ms, resize_ms=nat_rms,
+                   decode_max=float(max(np.abs(a["imgs"] - b["imgs"]).max()
+                                        for a, b in zip(nat, pil))),
+                   resize_mean=float(np.mean([d.mean() for d in diffs])),
+                   resize_max=float(max(d.max() for d in diffs)))
+        text += (f"; native {nat_ms:.2f} and {nat_rms:.2f} ms; native vs "
+                 f"PIL decode max {res['decode_max'] * 255:.3f}/255, resize "
+                 f"mean {res['resize_mean'] * 255:.3f}/255 max "
+                 f"{res['resize_max'] * 255:.3f}/255")
+    print(f"phase15 loaders (BlendedMVS val, 3 views 576x768 JPEG + PFM; "
+          f"MegaDepth's min-side 512 resize): {text}; phase 5's MVSNet step "
+          f"{step_ms:.3f} ms", flush=True)
+    if native_decode:
+        check(res["decode_max"] <= IMAGE_LIMITS["decode_max"]
+              and res["resize_mean"] <= IMAGE_LIMITS["resize_mean"]
+              and res["resize_max"] <= IMAGE_LIMITS["resize_max"],
+              f"native decode or resize against PIL outside {IMAGE_LIMITS}")
+    return res
+
+
+def phase15_native(clouds, step_ms: float) -> dict:
+    """The native host helpers (wildmvs_torch/cpp) on the card's host: the
+    library variant that built (the k-d tree must; the image module must
+    link where libjpeg's and libpng's headers exist); the metrics on phase
+    11's oracle cloud against its GT points and on DENSE_CLOUD
+    (native_metrics); the loaders (native_images)."""
+    lib = native.get_lib()            # main() built it before phase 1
+    variant = native.variant()
+    headers = all(Path("/usr/include", h).exists()
+                  for h in ("jpeglib.h", "png.h"))
+    print(f"phase15 native library: {variant} "
+          f"({native.library_path(variant or 'kdtree').name}); "
+          f"libjpeg/libpng headers {'present' if headers else 'absent'}",
+          flush=True)
+    check(lib is not None, "the native k-d tree did not build")
+    check(variant == "full" or not headers,
+          "the native image module did not link though its headers exist")
+    oracle, gt = clouds
+    return dict(variant=variant, headers=headers,
+                oracle=native_metrics("oracle cloud", oracle, gt,
+                                      BenchScene.gt_resolution),
+                dense=native_metrics("dense cloud", *dense_cloud(), 1.0),
+                loaders=native_images(step_ms, variant == "full"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -3221,6 +3563,12 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if re.search(r"registers|spill|Compiling entry", line):
             print(f"ptxas: {line.strip()}", flush=True)
+    # the native host helpers (cpp/), built here so that no phase's
+    # metrics stage pays for g++
+    t1 = time.perf_counter()
+    native.get_lib()
+    print(f"native library {native.variant()} built and loaded in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
 
     kernels = phase1_rect_kernels(dev, phase1_vis_kernels(
         dev, phase1_kernels(dev)))
@@ -3244,7 +3592,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rect_counts, rect_serving = phase10_rect_serving()
     torch.cuda.empty_cache()
-    recon_counts, reconstruction = phase11_reconstruction()
+    recon_counts, reconstruction, clouds = phase11_reconstruction()
     torch.cuda.empty_cache()
     t12 = time.perf_counter()
     unsup_counts, unsup_training = phase12_unsup_training(
@@ -3266,6 +3614,12 @@ def main() -> int:
     classic_counts, eval_counts, tools = phase14_classic_and_tools(dev)
     tools["phase_s"] = time.perf_counter() - t14
     print(f"phase14 took {tools['phase_s']:.1f} s of "
+          f"{time.perf_counter() - t0:.1f} s since the build began",
+          flush=True)
+    t15 = time.perf_counter()
+    native_host = phase15_native(clouds, training["step_ms_median"])
+    native_host["phase_s"] = time.perf_counter() - t15
+    print(f"phase15 took {native_host['phase_s']:.1f} s of "
           f"{time.perf_counter() - t0:.1f} s since the build began",
           flush=True)
 
@@ -3296,7 +3650,8 @@ def main() -> int:
                       "reconstruction": reconstruction,
                       "unsup_training": unsup_training,
                       "distributed": distributed,
-                      "classic_and_tools": tools, "card": card}),
+                      "classic_and_tools": tools,
+                      "native_host": native_host, "card": card}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -166,6 +166,13 @@ def test_port_imports_neither_jax_nor_wildmvs():
         "sys.modules['jax'] = None\n"
         "sys.modules['wildmvs'] = None\n"
         "import wildmvs_torch\n"
+        "assert wildmvs_torch.__version__ == '0.1.0'\n"
+        "light = [m for m in sys.modules if m.startswith('wildmvs_torch.')]\n"
+        "assert light == ['wildmvs_torch.device'], light\n"
+        "from wildmvs_torch.infer import Predictor\n"
+        "from wildmvs_torch.models import build_model\n"
+        "assert wildmvs_torch.Predictor is Predictor\n"
+        "assert wildmvs_torch.build_model is build_model\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    wildmvs_torch.__path__, 'wildmvs_torch.')]\n"
         "for name in names:\n"
@@ -178,6 +185,8 @@ def test_port_imports_neither_jax_nor_wildmvs():
         "        'PIL', 'h5py')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
+        "from wildmvs_torch import _build, cpp\n"
+        "assert _build._lib is None and cpp._LIB is None  # nothing built\n"
         "print(' '.join(names))\n")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -200,4 +209,6 @@ def test_port_imports_neither_jax_nor_wildmvs():
             "wildmvs_torch.pipeline.depthmap_eval",
             "wildmvs_torch.pipeline.export", "wildmvs_torch.data.matching",
             "wildmvs_torch.data.preprocess_megadepth",
-            "wildmvs_torch.train.orbax_read"} <= names
+            "wildmvs_torch.train.orbax_read", "wildmvs_torch.cpp",
+            "wildmvs_torch.geometry.projective",
+            "wildmvs_torch.pipeline.metrics3d"} <= names

@@ -3,11 +3,13 @@ colmap_utils.py, loaders.py, prefetch.py, txt/) vs the JAX package's, on
 fixtures written into tmp_path in the datasets' own layouts (as
 tests/test_loaders.py builds them).
 
-The JAX loaders decode through their native module unless
-WILDMVS_NATIVE_IO=0; the port decodes with PIL, the JAX package's fallback.
-With the fallback forced, both give the same arrays bit for bit; the
-native decode with its f32 Lanczos resize is held to the port's under a
-stated tolerance.
+Both packages decode JPEG and PNG through their native module (the same
+C++, wildmvs/cpp and wildmvs_torch/cpp) unless WILDMVS_NATIVE_IO=0, and
+through PIL, the fallback, when it is 0. Every test here forces the
+fallback in both packages (the autouse fixture) unless it says not, and
+holds the port to JAX bit for bit either way: PIL against PIL, and native
+against native (the MegaDepth resize, the DTU PNGs, the BlendedMVS and
+DTU-eval JPEGs).
 """
 import threading
 import time
@@ -30,7 +32,8 @@ from wildmvs_torch.train.config import TrainConfig
 
 @pytest.fixture(autouse=True)
 def pil_in_jax(monkeypatch):
-    """The JAX loaders take their PIL fallback unless a test says not."""
+    """Both packages' loaders take their PIL fallback unless a test says
+    not."""
     monkeypatch.setenv("WILDMVS_NATIVE_IO", "0")
 
 
@@ -353,15 +356,14 @@ def test_megadepth_dataset_matches_jax(tmp_path):
 
 
 def test_megadepth_resize_against_the_native_decoder(tmp_path, monkeypatch):
-    """The JAX package's native path (libjpeg decode, f32 Lanczos-3)
-    against the port's PIL path (LANCZOS through an 8-bit image) on the
-    train resize: the same sizes, K and depth; pixels within 1/255 on
-    average and 8/255 at worst (measured 0.31 and 5.1: PIL rounds the
-    resized image to 8 bits and clips Lanczos's overshoot, and the two
-    decoders' IDCTs may differ by a level)."""
+    """Both packages on their default path, the native decoder (libjpeg
+    decode, f32 Lanczos-3 resize, one C++ source): the train resize's
+    samples equal bit for bit; PIL's 8-bit LANCZOS passes differ from them
+    by at most 1/255 on average and 8/255 at worst."""
     from wildmvs import cpp
-    if not cpp.has_image_module():
-        pytest.skip("the JAX package's native image module did not build")
+    from wildmvs_torch import cpp as port_cpp
+    if not (cpp.has_image_module() and port_cpp.has_image_module()):
+        pytest.skip("the native image module did not build")
     monkeypatch.setenv("WILDMVS_NATIVE_IO", "1")
     root = tmp_path / "md"
     md_root(root, "train", [(600, 800), (640, 700), (560, 900)], items=1)
@@ -369,13 +371,47 @@ def test_megadepth_resize_against_the_native_decoder(tmp_path, monkeypatch):
                                    return_depth=True)[0]
     want = jloaders.MegaDepthDataset(root, ["0000"], "train", 3,
                                      return_depth=True)[0]
-    assert sorted(got) == sorted(want)
-    for k in ("K", "R", "t", "depth", "mask", "depth_min", "depth_max"):
-        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    diff = np.abs(got["imgs"] - want["imgs"])
-    assert got["imgs"].shape == want["imgs"].shape == (3, 512, 512, 3)
-    assert diff.mean() <= 1 / 255 and diff.max() <= 8 / 255, \
-        (diff.mean() * 255, diff.max() * 255)
+    assert got["imgs"].shape == (3, 512, 512, 3)
+    assert_samples_equal(got, want)
+    monkeypatch.setenv("WILDMVS_NATIVE_IO", "0")
+    pil = loaders.MegaDepthDataset(root, ["0000"], "train", 3,
+                                   return_depth=True)[0]
+    diff = np.abs(got["imgs"] - pil["imgs"])
+    assert 0 < diff.mean() <= 1 / 255 and diff.max() <= 8 / 255
+
+
+@pytest.mark.parametrize("dataset", ["dtu_train", "dtu_eval", "blended"])
+def test_datasets_on_the_native_decoder_match_jax(tmp_path, monkeypatch,
+                                                  dataset):
+    """The DTU training PNGs, the DTU eval and BlendedMVS (no augmentation)
+    JPEGs through both packages' native decoders: equal bit for bit."""
+    from wildmvs_torch import cpp as port_cpp
+    if not port_cpp.has_image_module():
+        pytest.skip("the native image module did not build")
+    monkeypatch.setenv("WILDMVS_NATIVE_IO", "1")
+    if dataset == "dtu_train":
+        dtu_train_root(tmp_path, views=3, h=160, w=192)
+        args = (tmp_path, [1], "test", 3)        # crop to /32
+        cls = "DTUTrainDataset"
+    elif dataset == "dtu_eval":
+        K = np.array([[300.0, 0, 96.0], [0, 300.0, 80.0], [0, 0, 1]])
+        (tmp_path / "scan1" / "cams").mkdir(parents=True)
+        (tmp_path / "scan1" / "pair.txt").write_text(
+            "2\n0\n1 1 10.0\n1\n1 0 9.0\n")
+        for v in range(2):
+            yao_cam(tmp_path / "scan1" / "cams" / f"{v:08d}_cam.txt", K,
+                    np.eye(3), np.array([[0.2 * v], [0], [0]]), 2.0, 0.01)
+            write_img(tmp_path / "scan1" / "images" / f"{v:08d}.jpg", 160,
+                      192, v)
+        args = (tmp_path, "scan1", 2)
+        cls = "DTUEvalDataset"
+    else:
+        blended_root(tmp_path, "scene")
+        args = (tmp_path, ["scene"], "val", 3)
+        cls = "BlendedMVSDataset"
+    got, want = getattr(loaders, cls)(*args), getattr(jloaders, cls)(*args)
+    for i in (0, 1):
+        assert_samples_equal(got[i], want[i])
 
 
 def blended_root(root, scene, views=3):

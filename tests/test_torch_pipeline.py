@@ -10,11 +10,14 @@ render from one seed. Tolerances:
     a comparison of f32 values; the fixtures keep every value away from
     its threshold by far more than the rounding);
   * fused points: the same count, coordinates within 1e-4;
-  * PLY: equal bytes; metrics: numpy/scipy on both sides, the same
-    dedup, distances within 1e-12 relative (float64 sums in another
-    order); the JAX package's native k-d tree returns the cutoff where
-    scipy returns inf, so distances are compared clipped at the cutoff.
+  * PLY: equal bytes; metrics: the dedup keep masks equal; both packages'
+    NN distances (chamfer_nn, eval_yfcc) come from the same native k-d
+    tree and are equal, the cutoff included; chamfer_cells' (cKDTree on
+    both sides) within 1e-12 relative;
+  * quaternion helpers: f32 within 1e-5, f64 within 1e-12 (QUAT_TOL).
 """
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -100,12 +103,91 @@ def test_projective_functions_match_jax():
     close(geo.compute_triangulation_angles(world, t32(R), t32(t)),
           jgeo.compute_triangulation_angles(jnp.asarray(world.numpy()), R, t),
           atol=1e-3)
-    Rr, tr = jgeo.relative_pose(R[0], t[0], R[1], t[1])
-    close(geo.compute_triangulation_angle(t32(pts.reshape(-1, 3)),
-                                          t32(np.asarray(Rr)),
-                                          t32(np.asarray(tr))),
+    Rr, tr = geo.relative_pose(t32(R[0]), t32(t[0]), t32(R[1]), t32(t[1]))
+    jRr, jtr = jgeo.relative_pose(R[0], t[0], R[1], t[1])
+    close(Rr, jRr, atol=1e-6)
+    close(tr, jtr, atol=1e-6)
+    close(geo.compute_triangulation_angle(t32(pts.reshape(-1, 3)), Rr, tr),
           jgeo.compute_triangulation_angle(jnp.asarray(pts.reshape(-1, 3)),
-                                           Rr, tr), atol=1e-3)
+                                           jRr, jtr), atol=1e-3)
+
+
+#: the quaternion helpers: f32 within 1e-5 (tests/test_geometry.py's
+#: round-trip bound; the same arithmetic, rounded in another order), f64
+#: within 1e-12
+QUAT_TOL = {"float32": 1e-5, "float64": 1e-12}
+
+
+def branch_rotations() -> np.ndarray:
+    """tests/test_geometry.py:61-72's rotations: one for each of Shepperd's
+    four branches (trace, m00, m11, m22 dominant)."""
+    Rs = []
+    for axis, angle in [(0, 0.1), (0, np.pi - 0.1), (1, np.pi - 0.1),
+                        (2, np.pi - 0.1)]:
+        c, s = np.cos(angle), np.sin(angle)
+        Rs.append([np.array([[1, 0, 0], [0, c, -s], [0, s, c]]),
+                   np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]]),
+                   np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])][axis])
+    return np.stack(Rs)
+
+
+def jax_geo(fn, *args, dtype):
+    """A JAX geometry function in `dtype` (f64 under enable_x64)."""
+    import jax
+    with jax.enable_x64(dtype == "float64"):
+        return np.asarray(fn(*[jnp.asarray(a, dtype) for a in args]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_quaternions_match_jax(dtype):
+    tol = QUAT_TOL[dtype]
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((20, 4))
+    q = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(dtype)
+    R = geo.quat_to_rot(torch.from_numpy(q))
+    assert R.dtype == getattr(torch, dtype) and R.shape == (20, 3, 3)
+    np.testing.assert_allclose(R.numpy(), jax_geo(jgeo.quat_to_rot, q,
+                                                  dtype=dtype),
+                               rtol=0, atol=tol)
+    q2 = geo.rot_to_quat(R).numpy()
+    sign = np.sign(np.sum(q2 * q, axis=1, keepdims=True))  # q ~ -q
+    np.testing.assert_allclose(q2 * sign, q, rtol=0, atol=tol)
+    # Shepperd's four branches, each taken, against JAX's
+    Rs = branch_rotations().astype(dtype)
+    tr = np.trace(Rs, axis1=1, axis2=2)
+    d = np.diagonal(Rs, axis1=1, axis2=2)
+    assert tr[0] > 0 and (tr[1:] <= 0).all()
+    assert [int(np.argmax(x)) for x in d[1:]] == [0, 1, 2]
+    got = geo.rot_to_quat(torch.from_numpy(Rs))
+    np.testing.assert_allclose(got.numpy(), jax_geo(jgeo.rot_to_quat, Rs,
+                                                    dtype=dtype),
+                               rtol=0, atol=tol)
+    np.testing.assert_allclose(geo.quat_to_rot(got).numpy(), Rs, rtol=0,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_relative_pose_matches_jax(dtype):
+    """tests/test_geometry.py:75-85: a world point in view 1's frame, moved
+    by the relative pose, is the point in view 2's frame."""
+    rng = np.random.default_rng(1)
+    _, R, t = make_scene(rng, n_views=2)
+    R, t = R.astype(dtype), t.astype(dtype)
+    Rr, tr = geo.relative_pose(*map(torch.from_numpy, (R[0], t[0], R[1],
+                                                        t[1])))
+    jRr = jax_geo(lambda *a: jgeo.relative_pose(*a)[0], R[0], t[0], R[1],
+                  t[1], dtype=dtype)
+    jtr = jax_geo(lambda *a: jgeo.relative_pose(*a)[1], R[0], t[0], R[1],
+                  t[1], dtype=dtype)
+    np.testing.assert_allclose(Rr.numpy(), jRr, rtol=0, atol=QUAT_TOL[dtype])
+    np.testing.assert_allclose(tr.numpy(), jtr, rtol=0, atol=QUAT_TOL[dtype])
+    pts = rng.standard_normal((10, 3)).astype(dtype) + np.array([0, 0, 4],
+                                                                dtype)
+    cam1 = pts @ R[0].T + t[0].T
+    moved = cam1 @ Rr.numpy().T + tr.numpy().T
+    # make_scene's rotations are rounded to f32: orthogonal within ~1e-7
+    np.testing.assert_allclose(moved, pts @ R[1].T + t[1].T, rtol=0,
+                               atol=1e-4 if dtype == "float32" else 1e-6)
 
 
 # --- the synthetic scene ---------------------------------------------------
@@ -236,9 +318,13 @@ def test_metrics3d_matches_jax():
     np.testing.assert_allclose(
         metrics3d.chamfer_cells(pred, gt, bb, 30.0),
         jmetrics.chamfer_cells(pred, gt, bb, 30.0), rtol=F64)
-    np.testing.assert_allclose(
-        np.minimum(metrics3d.chamfer_nn(pred, gt, 5.0), 5.0),
-        np.minimum(jmetrics.chamfer_nn(pred, gt, 5.0), 5.0), rtol=F64)
+    # both take the native tree, which returns the cutoff beyond it
+    for cutoff in (5.0, np.inf):
+        got = metrics3d.chamfer_nn(pred, gt, cutoff)
+        np.testing.assert_array_equal(got, jmetrics.chamfer_nn(pred, gt,
+                                                               cutoff))
+        assert np.isfinite(got).all() and (got == cutoff).any() == \
+            np.isfinite(cutoff)
     mask = rng.random((25, 25, 25)) > 0.3
     plane = np.array([0.0, 0.0, 1.0, -20.0])
     raw = metrics3d.eval_dtu(pred, gt, mask, bb, 4.0, plane, maxdist=30.0)
@@ -252,8 +338,7 @@ def test_metrics3d_matches_jax():
     raw = metrics3d.eval_yfcc(pred, gt, 0.5)
     raw_j = jmetrics.eval_yfcc(pred, gt, 0.5)
     for k in raw_j:
-        np.testing.assert_allclose(np.minimum(raw[k], 5.0),
-                                   np.minimum(raw_j[k], 5.0), rtol=F64)
+        np.testing.assert_array_equal(raw[k], raw_j[k])
 
 
 def test_stage_timer():
@@ -392,3 +477,90 @@ def test_cli_drives_the_pipeline(tmp_path):
     with np.load(maps[0]) as z:
         assert z["depthmap"].shape == (SH // 4, SW // 4)
         assert np.isfinite(z["depthmap"]).all()
+
+
+# --- the eval sweep scripts --------------------------------------------------
+
+SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
+
+
+def script_lines(name: str) -> list[str]:
+    """A script's commands, continuations joined, comments dropped."""
+    text = (SCRIPTS / name).read_text().replace("\\\n", " ")
+    return [" ".join(line.split()) for line in text.splitlines()
+            if line.strip() and not line.lstrip().startswith("#")]
+
+
+@pytest.mark.parametrize("bench", ["dtu", "yfcc"])
+def test_torch_scripts_carry_the_jax_scripts_scans_and_flags(bench):
+    """scripts/eval3d_{dtu,yfcc}_torch.sh: the JAX scripts' scan lists,
+    subset sizes, flags and pass-through, command for command, driving
+    the port's reconstruction CLI."""
+    jax_lines = script_lines(f"eval3d_{bench}.sh")
+    port = script_lines(f"eval3d_{bench}_torch.sh")
+    want = [line.replace("wildmvs.pipeline.reconstruction",
+                         "wildmvs_torch.pipeline.reconstruction")
+            .replace(f"eval3d_{bench}.sh", f"eval3d_{bench}_torch.sh")
+            for line in jax_lines]
+    assert port == want
+    assert sum("wildmvs_torch.pipeline.reconstruction" in line
+               for line in port) == 1
+
+
+def write_dtu_gt(root: Path, scan_id: int, scene) -> None:
+    """The DTU evaluation's ground truth for a scene written by
+    tools/make_mini_dataset.py: ObsMask/ObsMask{id}_10.mat (a bounding
+    box and an all-valid mask), ObsMask/Plane{id}.mat (a plane below the
+    scene) and Points/stl/stl{id:03d}_total.ply (view 0's GT depth,
+    unprojected)."""
+    from scipy.io import savemat
+    K, R, t, depth = scene.K[0], scene.R[0], scene.t[0], scene.depths[0]
+    h, w = depth.shape
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    cam = (np.stack([xs, ys, np.ones_like(xs)], -1)
+           @ np.linalg.inv(K).T) * depth[..., None]
+    gt = ((cam - t[:, 0]) @ R).reshape(-1, 3)
+    lo, hi = gt.min(0) - 1.0, gt.max(0) + 1.0
+    res = float((hi - lo).max() / 16)
+    shape = tuple(np.ceil((hi - lo) / res).astype(int) + 1)
+    (root / "ObsMask").mkdir()
+    savemat(root / "ObsMask" / f"ObsMask{scan_id}_10.mat",
+            {"ObsMask": np.ones(shape, np.uint8), "BB": np.stack([lo, hi]),
+             "Res": np.array([[res]])})
+    savemat(root / "ObsMask" / f"Plane{scan_id}.mat",
+            {"P": np.array([[0.0], [0.0], [-1.0], [hi[2] + 1.0]])})
+    (root / "Points" / "stl").mkdir(parents=True)
+    ply.write_ply(root / "Points" / "stl" / f"stl{scan_id:03d}_total.ply",
+                  gt.astype(np.float32))
+
+
+def test_cli_runs_the_dtu_script_flags_on_a_mini_scan(tmp_path):
+    """The port's CLI with exactly scripts/eval3d_dtu_torch.sh's arguments
+    (scan 1, the trained Vis asset as the model, `--device cpu` passed
+    through) on a scan of tools/make_mini_dataset.py's layout with its
+    DTU ground truth: every stage runs, metrics included."""
+    import shlex
+    import sys
+    sys.path.insert(0, str(SCRIPTS.parent / "tools"))
+    from make_mini_dataset import write_mini_scene
+    scene = write_mini_scene(tmp_path, scan="scan1", num_views=5,
+                             height=64, width=96, seed=3)
+    write_dtu_gt(tmp_path, 1, scene)
+    (line,) = [ln for ln in script_lines("eval3d_dtu_torch.sh")
+               if "wildmvs_torch.pipeline.reconstruction" in ln]
+    model = SCRIPTS.parent / "assets" / "vis_synth_trained.npz"
+    line = (line.replace("$s", "1").replace('"$MODEL"', shlex.quote(str(model)))
+            .replace('"$DATA"', shlex.quote(str(tmp_path)))
+            .replace('"$@"', "--device cpu"))
+    argv = shlex.split(line)
+    assert argv[:3] == ["python", "-m", "wildmvs_torch.pipeline.reconstruction"]
+    res = reconstruction.main(argv[3:])
+    assert res["scene"] == "scan1" and res["architecture"] == "vis_mvsnet"
+    assert (tmp_path / "Points" / "scan1.ply").exists()
+    assert (tmp_path / "IntRes" / "chamfer" / "distsscan1.pkl").exists()
+    m = res["metrics"]
+    assert res["num_points"] > 0
+    assert sorted(m) == ["accuracy_mean", "accuracy_median",
+                         "completeness_mean", "completeness_median",
+                         "overall"]
+    assert all(np.isfinite(v) and v >= 0 for v in m.values()), m

@@ -1,10 +1,13 @@
 """Dataset loaders: DTU (train + eval), MegaDepth, BlendedMVS, YFCC scenes.
 
-The port's own copy of wildmvs/data/loaders.py. Images are decoded and
-resized with PIL (the JAX package's native decoder, wildmvs/cpp/image.cpp,
-is not carried over; its PIL fallback is what this module does), MegaDepth
-depths read with h5py and BlendedMVS's augmentation blurs with cv2; each
-is imported where it is used and named in the ImportError if missing.
+The port's own copy of wildmvs/data/loaders.py. JPEG and PNG decode and
+resize through the native module (wildmvs_torch/cpp/image.cpp, the JAX
+package's decoder) unless WILDMVS_NATIVE_IO=0; anything it refuses (other
+formats, PNGs of 16 bits, alpha or a palette), or every file when it did
+not build, goes through PIL, the JAX package's fallback, and the first
+such fall-back prints one line to stderr. MegaDepth depths are read with
+h5py and BlendedMVS's augmentation blurs with cv2; each is imported where
+it is used and named in the ImportError if missing.
 
 Reference: data/MVSDataset.py (base crop/resize/augment semantics), dtu_yao.py,
 md_yao.py, blended.py, dtu_yao_eval.py, yfcc_scene.py. All host-side numpy;
@@ -19,6 +22,9 @@ Differences from the reference kept deliberate:
 """
 from __future__ import annotations
 
+import os
+import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -26,6 +32,7 @@ import numpy as np
 from .codecs import read_cam_txt, read_pair_txt, read_pfm
 
 MULTI = 32  # resolutions must be multiples of 32 (MVSDataset.py:28)
+_fell_back = threading.Event()     # set at the first native-to-PIL fall-back
 
 
 def _require(module: str, package: str, what: str):
@@ -38,18 +45,33 @@ def _require(module: str, package: str, what: str):
                           f"(import {module})") from e
 
 
+def _native_io_enabled() -> bool:
+    return os.environ.get("WILDMVS_NATIVE_IO", "1") != "0"
+
+
 def read_image(path, resize_to: tuple | None = None):
     """Load an image -> float32 [H, W, 3] in [0,1]; optional min-side resize
     (LANCZOS) like MVSDataset.read_img (MVSDataset.py:102-118).
 
     Returns (img, resize_ratio r) with r as the reference defines it
-    (original / resized)."""
+    (original / resized). JPEG/PNG route through the native C++ decoder
+    (wildmvs_torch/cpp/image.cpp) when built; anything else (or
+    WILDMVS_NATIVE_IO=0) falls back to PIL."""
     return read_images([path], resize_to)[0]
 
 
 def read_images(paths, resize_to: tuple | None = None):
-    """read_image of each path, decoded and resized by PIL. Returns
-    [(img, r), ...]."""
+    """Batched read_image: one native call decodes + resizes all files on a
+    thread pool (the C call releases the GIL). Returns [(img, r), ...]."""
+    if _native_io_enabled():
+        from .. import cpp
+        try:
+            return cpp.load_images(paths, resize_to)
+        except RuntimeError as e:   # module unavailable or exotic format
+            if not _fell_back.is_set():
+                _fell_back.set()
+                print(f"wildmvs_torch.data.loaders: decoding with PIL ({e})",
+                      file=sys.stderr)
     Image = _require("PIL.Image", "pillow", "reading images")
     out = []
     for path in paths:

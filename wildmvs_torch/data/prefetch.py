@@ -2,9 +2,10 @@
 (train.py:118-122, 8 worker processes decoding and resizing on the CPU).
 
 The port's own copy of wildmvs/data/prefetch.py. A thread pool loads
-samples ahead of the device step (PIL releases the GIL while it decodes
-and resizes) and delivers them in order, as DataLoader does: every
-reference view of an occlusion-masked step sees the same batch.
+samples ahead of the device step (the native decoder, cpp/image.cpp, and
+PIL both release the GIL while they decode and resize) and delivers them
+in order, as DataLoader does: every reference view of an occlusion-masked
+step sees the same batch.
 """
 from __future__ import annotations
 

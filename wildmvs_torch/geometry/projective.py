@@ -1,7 +1,7 @@
 """Projective geometry core, batched torch functions over channels-last data.
 
-Counterpart of wildmvs/geometry/projective.py:18-220 (the quaternion
-helpers are not ported). Conventions:
+Counterpart of wildmvs/geometry/projective.py, the quaternion helpers
+(quat_to_rot, rot_to_quat, relative_pose) included. Conventions:
 
   * pixel coordinates are (x, y); x goes along width, y along height
   * a pinhole view is (K [3,3], R [3,3], t [3,1]); world->cam: Xc = R Xw + t
@@ -169,3 +169,78 @@ def compute_triangulation_angle(point_cloud: torch.Tensor, R: torch.Tensor,
         / torch.clamp_min(torch.linalg.vector_norm(ray2, dim=-1), 1e-12),
         -1.0, 1.0)
     return torch.rad2deg(torch.arccos(cos))
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (wxyz) -> rotation matrix. Parity: utils/utils_3D.py:326-343.
+
+    Args: q [N, 4]. Returns [N, 3, 3].
+    """
+    a, b, c, d = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+    a2, b2, c2, d2 = a * a, b * b, c * c, d * d
+    rows = [
+        torch.stack([a2 + b2 - c2 - d2, 2 * b * c - 2 * a * d,
+                     2 * a * c + 2 * b * d], -1),
+        torch.stack([2 * a * d + 2 * b * c, a2 - b2 + c2 - d2,
+                     2 * c * d - 2 * a * b], -1),
+        torch.stack([2 * b * d - 2 * a * c, 2 * a * b + 2 * c * d,
+                     a2 - b2 - c2 + d2], -1),
+    ]
+    return torch.stack(rows, dim=-2)
+
+
+def rot_to_quat(M: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> quaternion (wxyz), branch-free (torch.where).
+
+    Parity: utils/utils_3D.py:345-378 (Shepperd's method, 4 cases on the
+    dominant diagonal entry, each evaluated for every matrix, then one
+    selected).
+
+    Args: M [N, 3, 3]. Returns [N, 4] unit quaternions.
+    """
+    m = M
+    tr = m[:, 0, 0] + m[:, 1, 1] + m[:, 2, 2]
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp_min(x, 1e-12))
+
+    # case 1: trace dominant
+    s1 = 2.0 * safe_sqrt(1.0 + tr)
+    q1 = torch.stack([0.25 * s1,
+                      (m[:, 2, 1] - m[:, 1, 2]) / s1,
+                      (m[:, 0, 2] - m[:, 2, 0]) / s1,
+                      (m[:, 1, 0] - m[:, 0, 1]) / s1], -1)
+    # case 2: m00 dominant
+    s2 = 2.0 * safe_sqrt(1.0 + m[:, 0, 0] - m[:, 1, 1] - m[:, 2, 2])
+    q2 = torch.stack([(m[:, 2, 1] - m[:, 1, 2]) / s2,
+                      0.25 * s2,
+                      (m[:, 0, 1] + m[:, 1, 0]) / s2,
+                      (m[:, 0, 2] + m[:, 2, 0]) / s2], -1)
+    # case 3: m11 dominant
+    s3 = 2.0 * safe_sqrt(1.0 + m[:, 1, 1] - m[:, 0, 0] - m[:, 2, 2])
+    q3 = torch.stack([(m[:, 0, 2] - m[:, 2, 0]) / s3,
+                      (m[:, 0, 1] + m[:, 1, 0]) / s3,
+                      0.25 * s3,
+                      (m[:, 1, 2] + m[:, 2, 1]) / s3], -1)
+    # case 4: m22 dominant
+    s4 = 2.0 * safe_sqrt(1.0 + m[:, 2, 2] - m[:, 0, 0] - m[:, 1, 1])
+    q4 = torch.stack([(m[:, 1, 0] - m[:, 0, 1]) / s4,
+                      (m[:, 0, 2] + m[:, 2, 0]) / s4,
+                      (m[:, 1, 2] + m[:, 2, 1]) / s4,
+                      0.25 * s4], -1)
+
+    cond1 = tr > 0
+    cond2 = (~cond1) & (m[:, 0, 0] > m[:, 1, 1]) & (m[:, 0, 0] > m[:, 2, 2])
+    cond3 = (~cond1) & (~cond2) & (m[:, 1, 1] > m[:, 2, 2])
+    q = torch.where(cond1[:, None], q1,
+                    torch.where(cond2[:, None], q2,
+                                torch.where(cond3[:, None], q3, q4)))
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def relative_pose(R1: torch.Tensor, t1: torch.Tensor, R2: torch.Tensor,
+                  t2: torch.Tensor):
+    """Pose of view 2 relative to view 1. Parity: utils/utils_3D.py:380-383."""
+    R = R2 @ R1.T
+    t = t2 - R @ t1
+    return R, t

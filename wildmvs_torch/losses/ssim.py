@@ -4,6 +4,14 @@ Counterpart of wildmvs/losses/ssim.py (reference utils/ssimLoss.py): an
 11x11 Gaussian window (sigma 1.5), depthwise convolution with zero padding
 window // 2, C1 = 0.01^2, C2 = 0.03^2; returns 1 - SSIM per pixel and
 channel. Channels-last.
+
+The blurs run on contiguous NCHW copies, which PyTorch convolves with its
+own f32 depthwise kernel on the card. A permuted channels-last tensor goes
+to cuDNN instead, and under PyTorch's default flags
+(torch.backends.cudnn.allow_tf32) cuDNN may take a TF32 engine: sigma^2 =
+blur(x^2) - mu^2 is a difference of near-equal window means, and TF32
+moved the DSSIM map by 0.2 of its scale at 128x160 on an H100
+(chip_smoke.py, phase 12c).
 """
 from __future__ import annotations
 
@@ -41,8 +49,8 @@ def dssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
     """
     window = torch.as_tensor(_gaussian_window(window_size, sigma),
                              dtype=img1.dtype, device=img1.device)
-    x1 = img1.permute(0, 3, 1, 2)
-    x2 = img2.permute(0, 3, 1, 2)
+    x1 = img1.permute(0, 3, 1, 2).contiguous()
+    x2 = img2.permute(0, 3, 1, 2).contiguous()
     mu1 = _depthwise_blur(x1, window)
     mu2 = _depthwise_blur(x2, window)
     mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2

@@ -5,12 +5,14 @@ The port's own numpy/scipy copy of wildmvs/pipeline/metrics3d.py
 (reference evaluation/metrics.py): duplicate-point reduction by a k-d tree
 radius dedup (0.2 mm, :38-64), chamfer distances chunked over 60 mm grid
 cells (:141-167), ObsMask / bounding-box / plane validity (:99-139), and
-the YFCC chamfer with a cutoff of 10x the scene resolution (:76-96). The
-k-d tree is scipy's cKDTree (the JAX package's native C++ tree agrees with
-it, tests/test_pipeline.py::test_native_kdtree_matches_scipy; where the
-native tree returns the cutoff for a point beyond it, cKDTree returns inf,
-and every consumer clips at the cutoff). `summarize_dtu` reduces the raw
-distances to the protocol's accuracy and completeness means.
+the YFCC chamfer with a cutoff of 10x the scene resolution (:76-96).
+`reduce_pts` (not chunked) and `chamfer_nn` take the port's native C++ k-d
+tree (wildmvs_torch/cpp, a copy of the JAX package's) first, as the JAX
+package does, and scipy's cKDTree when it did not build; `chamfer_cells`
+and the chunked dedup take cKDTree. Where the native tree returns the
+cutoff for a point beyond it, cKDTree returns inf; every consumer clips at
+the cutoff. `summarize_dtu` reduces the raw distances to the protocol's
+accuracy and completeness means.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ from pathlib import Path
 
 import numpy as np
 from scipy.spatial import cKDTree
+
+from ..cpp import NativeKDTree, radius_dedup as _native_dedup
 
 
 def format_point_cloud(vertices) -> np.ndarray:
@@ -35,6 +39,12 @@ def reduce_pts(pts: np.ndarray, radius: float, chunked: bool = False,
     n = pts.shape[0]
     keep = np.ones((n,), dtype=bool)
     rand_ord = np.random.default_rng(seed).permutation(n)
+    if not chunked:
+        try:
+            keep = _native_dedup(np.asarray(pts, np.float64), radius, rand_ord)
+            return pts[keep], keep
+        except RuntimeError:
+            pass                    # the native library did not build
     kdtree = cKDTree(pts)
     if chunked:
         chunks = list(range(0, n, min(int(4e6), max(n - 1, 1))))
@@ -85,8 +95,15 @@ def chamfer_cells(pts_from: np.ndarray, pts_to: np.ndarray, bb: np.ndarray,
 
 def chamfer_nn(pts_from: np.ndarray, pts_to: np.ndarray,
                maxdist: float = np.inf) -> np.ndarray:
-    """Plain NN distance with a cutoff (inf beyond it). Parity:
-    metrics.py:93-96."""
+    """Plain NN distance with a cutoff. Parity: metrics.py:93-96.
+    The native tree returns maxdist for cut-off points where scipy returns
+    inf; all consumers clip at maxdist anyway."""
+    if pts_to.shape[0] > 0:
+        try:
+            return NativeKDTree(np.asarray(pts_to, np.float64)).nn_distance(
+                np.asarray(pts_from, np.float64), maxdist)
+        except RuntimeError:
+            pass                    # the native library did not build
     kd = cKDTree(pts_to)
     return kd.query(pts_from, distance_upper_bound=maxdist, workers=8)[0]
 
