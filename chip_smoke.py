@@ -87,8 +87,14 @@ JAX or of the JAX package. Phases, each of which stops the run if it fails:
      2 warps and 2 backwards a rank and
      step, ms a step beside phase 12's. (b) MVSNet serving at 1184x1600
      N5 D192 with the hypotheses over hyp = 2 (`Predictor(mesh=)`): one
-     fused launch a rank a request, over its 96 hypotheses; the depth
-     within phase 2's limits of the unsharded request's. (c) The trained
+     fused launch a rank a request, over its 96 hypotheses, each rank
+     keeping its slab through the depth-partitioned CostRegNet; the depth
+     within phase 2's limits of the unsharded request's; per rank, beside
+     the unsharded request, the peak GiB, the regularizer's CUDA-event ms
+     and the bytes its collectives moved, those under HYP_BYTES_SHARE of
+     the 2.9 GB f32 volume that a gather before the regularizer would
+     move. (c) The
+     trained
      Vis asset at 1184x1600 N5 with its source pairs over view = 2: two
      pairs a rank through sweep_gwc; stage-3 depth within one interval of
      the unsharded request's on >= 95 % of pixels. (d) A data-parallel
@@ -97,7 +103,14 @@ JAX or of the JAX package. Phases, each of which stops the run if it fails:
      (the exact gather: bf16 rounding leaves nothing sharp to hold it to),
      against the single-program step on the batch: loss within 1e-5,
      gradients within 1e-2 in relative L2, parameters within the
-     sign-flip bound. (e) --remat, in this process:
+     sign-flip bound. (f) At hyp = 2, the trained Vis asset at 1184x1600
+     N5 (12 gwc launches a rank a request, Reg, RegPair and RegFuse
+     depth-partitioned) and CVP-MVSNet "fused" nscale 5 (5 fused launches,
+     the coarse level partitioned) against their unsharded requests under
+     phase 6's limit (stage-3 depth within one interval on >= 95 % of
+     pixels) and phase 8's (one interval on >= 95 %, on the same inputs:
+     CVP's coarse depth, the level the partition runs; its finest depth
+     end to end reported). (e) --remat, in this process:
      phase 5's supervised step and the occlusion-masked step with and
      without it, losses within 2^-7, the warps launched twice, the
      occlusion-masked step's peak memory lower. Every time here is a
@@ -176,7 +189,9 @@ from wildmvs_torch import cpp as native
 from wildmvs_torch.data import loaders
 from wildmvs_torch.data.synthetic import (SyntheticMVSDataset, collate,
                                           render_rig_plane)
-from wildmvs_torch.dist.mesh import make_mesh, shard_batch, spawn
+from wildmvs_torch.dist.mesh import (collective_bytes, make_mesh,
+                                     reset_collective_bytes, shard_batch,
+                                     spawn)
 from wildmvs_torch.dist.view_parallel import make_view_parallel_train_step
 from wildmvs_torch.geometry.projective import build_proj_matrices, scale_K
 from wildmvs_torch.infer import Predictor
@@ -2709,6 +2724,12 @@ VIEW_GRAD_REL = 1e-2
 # to hold a data-parallel step to; in f32 the step must equal the single
 # program's (tests/test_multihost.py's bound)
 DATA_PARALLEL_DTYPE = "float32"
+# phase 13b's bound on the bytes a rank's collectives move in a hyp-2
+# MVSNet request, as a share of the f32 volume a gather before the
+# regularizer would move (2.9 GB at 1184x1600 D192): the partitioned
+# regularizer moves the halos of its 3D convs and the [B, H, W]
+# reductions over depth
+HYP_BYTES_SHARE = 0.05
 
 
 @contextlib.contextmanager
@@ -2790,28 +2811,86 @@ def phase13a_rank(dev, world):
                 params=params, grads=grads)
 
 
+def traced_request(pred, scene, modules):
+    """One request with the card's peak memory and this process's
+    collective bytes counted from 0, and CUDA events around every call of
+    `modules` (the regularizer's span on this rank's stream: its kernels,
+    the halo exchanges it waits for, and, with ranks sharing the card, the
+    other ranks' kernels in between). Returns (outputs, a dict of request
+    ms, regularizer ms, peak GiB, collective bytes)."""
+    spans = []
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+    hooks = [h for m in modules for h in (
+        m.register_forward_pre_hook(lambda mod, a: spans.append([event()])),
+        m.register_forward_hook(lambda mod, a, o: spans[-1].append(event())))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_collective_bytes()
+    try:
+        out, ms = synced_ms(lambda: pred(*scene))
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, dict(ms=ms, reg_ms=sum(a.elapsed_time(b) for a, b in spans),
+                     peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                     collective_bytes=collective_bytes())
+
+
+def regularizers(model):
+    """The 3D networks a request partitions over hyp: MVSNet's CostRegNet,
+    CVP's regularizer (all its levels' calls), Vis's Reg, RegPair and
+    RegFuse of every stage."""
+    if hasattr(model, "cost_regularization"):
+        return [model.cost_regularization]
+    if hasattr(model, "cost_reg_refine"):
+        return [model.cost_reg_refine]
+    return [getattr(getattr(model, f"stage{i}"), net) for i in (1, 2, 3)
+            for net in ("reg", "reg_pair", "reg_fuse")]
+
+
+def hyp_requests(make, scene, world, rank):
+    """A request of the predictor `make(mesh)` builds, with its
+    regularizers hyp-partitioned over `world` ranks, after a warm-up
+    request; on rank 0 first the unsharded predictor's (mesh None), the
+    reference, warmed up alike. Returns (reference, sharded), each a dict
+    of depth, launches, traced_request's numbers and the first request's
+    ms."""
+    runs = {}
+    for name, mesh in (("ref", None), ("hyp", make_mesh(hyp=world))):
+        if name == "ref" and rank != 0:
+            continue
+        pred = make(mesh)
+        sk.reset_launch_counts()
+        _, first = synced_ms(lambda: pred(*scene))
+        out, numbers = traced_request(pred, scene, regularizers(pred.model))
+        runs[name] = dict(depth=out["depth"], counts=sk.launch_counts(),
+                          first_ms=first, **numbers)
+        if hasattr(pred, "levels"):          # CVP: this request's levels
+            runs[name]["levels"] = pred.levels[-CVP_NSCALE:]
+        del pred
+        torch.cuda.empty_cache()
+    return runs.get("ref"), runs["hyp"]
+
+
 def phase13bcd_rank(dev, world):
-    """Phases 13b-d on one of two ranks: MVSNet serving with the
+    """Phases 13b-d and f on one of two ranks: MVSNet serving with the
     hypotheses over hyp, the trained Vis asset with its source pairs over
-    view (each beside the unsharded request on rank 0), and one
-    data-parallel supervised MVSNet step with BatchNorm synced over data
-    (beside the single-program step on the whole batch, on rank 0)."""
+    view (each beside the unsharded request on rank 0), one data-parallel
+    supervised MVSNet step with BatchNorm synced over data (beside the
+    single-program step on the whole batch, on rank 0), and the Vis asset
+    and CVP "fused" with the hypotheses over hyp (beside their unsharded
+    requests)."""
     rank = torch.distributed.get_rank()
     res = {}
     # (b) MVSNet at the eval shape, hyp = 2: one fused launch a rank, over
-    # its 96 hypotheses
-    scene = dtu_scene(4, **EVAL)
-    mesh = make_mesh(hyp=world)
-    pred = sharpen(Predictor(architecture="mvsnet", mesh=mesh))
-    if rank == 0:
-        res["b_ref"] = sharpen(Predictor(architecture="mvsnet"))(*scene)
-    sk.reset_launch_counts()
-    out, first = synced_ms(lambda: pred(*scene))
-    out, ms = synced_ms(lambda: pred(*scene))
-    res["b"] = dict(counts=sk.launch_counts(), depth=out["depth"],
-                    first_ms=first, ms=ms)
-    del pred
-    torch.cuda.empty_cache()
+    # its 96 hypotheses, and its slab through the partitioned CostRegNet
+    res["b_ref"], res["b"] = hyp_requests(
+        lambda mesh: sharpen(Predictor(architecture="mvsnet", mesh=mesh)),
+        dtu_scene(4, **EVAL), world, rank)
 
     # (c) the trained Vis asset at the eval shape, view = 2: two of the
     # four source pairs a rank, each through sweep_gwc
@@ -2854,7 +2933,40 @@ def phase13bcd_rank(dev, world):
                     ms=ms, grads=flat_grads(state.model) if rank == 0
                     else None, params=flat_params(state.model) if rank == 0
                     else None)
+    del state
+    torch.cuda.empty_cache()
+
+    # (f) the trained Vis asset and CVP "fused" at the eval shape, hyp = 2
+    res["f_vis_ref"], res["f_vis"] = hyp_requests(
+        lambda mesh: Predictor(VIS_ASSET, mesh=mesh),
+        vis_scene(n=5, h=EVAL["h"], w=EVAL["w"], f=EVAL["f"])[0], world,
+        rank)
+    scene = dtu_scene(20, **EVAL)
+
+    def cvp(mesh):
+        pred = sharpen(Predictor(architecture="cvp_mvsnet",
+                                 sweep_method="fused", cvp_nscale=CVP_NSCALE,
+                                 mesh=mesh))
+        pred.levels = record_regress(pred.model)
+        return pred
+    res["f_cvp_ref"], res["f_cvp"] = hyp_requests(cvp, scene, world, rank)
     return res
+
+
+def record_regress(model):
+    """Patch the CVP model's regress so that each call appends its level's
+    (depth, hypothesis interval) to the returned list, on the host: the
+    coarse level first, CVP_NSCALE calls a request."""
+    levels = []
+    real = model.regress
+
+    def recording(cost, hyp, slab=None):
+        prob, depth = real(cost, hyp, slab)
+        levels.append((depth[0].float().cpu().numpy(),
+                       (hyp[:, 1] - hyp[:, 0]).flatten()[0].item()))
+        return prob, depth
+    model.regress = recording
+    return levels
 
 
 def phase13_rank(rank, world, part):
@@ -2940,12 +3052,14 @@ def phase13_distribution(dev, single_step_ms):
     spawned ranks on cuda:0 over gloo (one process a rank; the kernels
     were built once, before the spawn). (a) view-parallel occlusion-
     masked MVSNet, three ranks, DIST_STEPS steps against the single-
-    program step's; (b) MVSNet serving at 1184x1600 N5 D192 with hyp 2;
-    (c) the trained Vis asset at 1184x1600 N5 with view 2; (d) a data-
-    parallel supervised MVSNet step, two ranks, BatchNorm synced; (e)
-    --remat in this process. One card: no figure here says anything of
-    NCCL or of scaling over cards. Returns the ranks' launches summed and
-    the results."""
+    program step's; (b) MVSNet serving at 1184x1600 N5 D192 with hyp 2,
+    the regularizer depth-partitioned: peak GiB, regularizer ms and
+    collective bytes a rank beside the unsharded request's; (c) the
+    trained Vis asset at 1184x1600 N5 with view 2; (d) a data-parallel
+    supervised MVSNet step, two ranks, BatchNorm synced; (f) the Vis asset
+    and CVP "fused" at hyp 2; (e) --remat in this process. One card: no
+    figure here says anything of NCCL or of scaling over cards. Returns
+    the ranks' launches summed and the results."""
     _build.build()
     lr = occ_mvsnet_config().lr
     remat = phase13e_remat(dev)
@@ -3010,31 +3124,80 @@ def phase13_distribution(dev, single_step_ms):
     ref = ranks_b[0]
     interval = (DEPTH_RANGE[1] - DEPTH_RANGE[0]) / (NUM_DEPTH - 1)
     interval3 = (DEPTH_RANGE[1] - DEPTH_RANGE[0]) / 128.0 * VIS_EVAL_SCALES[2]
+    # the f32 volume [1, D, H/4, W/4, 32] a gather before the regularizer
+    # would hand each rank
+    gathered = NUM_DEPTH * (EVAL["h"] // 4) * (EVAL["w"] // 4) * 32 * 4
     out = {}
-    for part, limit in (("b", interval), ("c", interval3)):
+    for part, limit, want_c in (
+            ("b", interval, {"fused_cost_volume": 2}),
+            ("c", interval3, {"sweep_gwc": 12}),
+            ("f_vis", interval3, {"sweep_gwc": 24}),
+            ("f_cvp", ref["f_cvp_ref"]["levels"][-1][1],
+             {"fused_cost_volume": 2 * CVP_NSCALE})):
+        phase = f"phase13{part[0]}" + (f" {part[2:]}" if part[1:] else "")
         want_d = ref[f"{part}_ref"]["depth"]
         for r, res in enumerate(ranks_b):
             c = res[part]["counts"]
             total = {k: total[k] + c[k] for k in total}
-            want_c = ({"fused_cost_volume": 2} if part == "b"
-                      else {"sweep_gwc": 12})
             check(c == {**{k: 0 for k in total}, **want_c},
-                  f"phase13{part} rank {r} launches {c}")
+                  f"{phase} rank {r} launches {c}")
             err = np.abs(res[part]["depth"] - want_d) / limit
             within = float((err < 1).mean())
-            print(f"phase13{part} rank {r}: depth vs the unsharded request "
-                  f"mean {err.mean():.4g} intervals, {within:.5f} within 1, "
-                  f"max {err.max():.4g}; request ms {res[part]['ms']:.3f} "
-                  f"(first {res[part]['first_ms']:.3f})", flush=True)
+            print(f"{phase} rank {r}: depth vs the unsharded request "
+                  f"mean {err.mean():.4g} intervals ({limit:.4g} mm), "
+                  f"{within:.5f} within 1, max {err.max():.4g}; request ms "
+                  f"{res[part]['ms']:.3f} (first {res[part]['first_ms']:.3f})",
+                  flush=True)
             if part == "b":
                 check(err.mean() < 0.25 and within > 0.95,
                       f"phase13b rank {r}: the hyp-sharded depth disagrees")
+            elif part == "f_cvp":
+                # phase 8's limit on the level the partition runs, whose
+                # inputs (features, the fused volume's planes) are the
+                # unsharded request's bit for bit; the finer levels run
+                # unsharded from its depth, and a random-weight cascade
+                # carries any difference there on (the finest, above,
+                # reported)
+                (coarse, step), (coarse_ref, _) = (
+                    res[part]["levels"][0], ref[f"{part}_ref"]["levels"][0])
+                cerr = np.abs(coarse - coarse_ref) / step
+                c_within = float((cerr < 1).mean())
+                print(f"{phase} rank {r}: coarse depth (partitioned) vs the "
+                      f"unsharded request mean {cerr.mean():.4g} intervals "
+                      f"({step:.4g} mm), {c_within:.5f} within 1, max "
+                      f"{cerr.max():.4g}", flush=True)
+                check(c_within >= 0.95, f"{phase} rank {r}: the partitioned "
+                      f"coarse depth disagrees")
             else:
                 check(within >= 0.95,
-                      f"phase13c rank {r}: the view-sharded depth disagrees")
+                      f"{phase} rank {r}: the sharded depth disagrees")
             check(np.isfinite(res[part]["depth"]).all(), "non-finite depth")
         out[part] = dict(request_ms=[res[part]["ms"] for res in ranks_b],
                          counts=[res[part]["counts"] for res in ranks_b])
+        if part == "c":
+            continue
+        # the partitioned regularizers, rank by rank beside the unsharded
+        # request (rank 0, alone on the card while it ran)
+        keys = ("ms", "reg_ms", "peak_gib", "collective_bytes")
+        unsharded = {k: ref[f"{part}_ref"][k] for k in keys}
+        ranks = [{k: res[part][k] for k in keys} for res in ranks_b]
+        for r, x in enumerate(ranks):
+            print(f"{phase} rank {r} hyp 2: peak {x['peak_gib']:.3f} GiB, "
+                  f"regularizer {x['reg_ms']:.3f} ms (CUDA events; the two "
+                  f"ranks share the card), request {x['ms']:.3f} ms, "
+                  f"collectives {x['collective_bytes']} bytes; unsharded: "
+                  f"peak {unsharded['peak_gib']:.3f} GiB, regularizer "
+                  f"{unsharded['reg_ms']:.3f} ms, request "
+                  f"{unsharded['ms']:.3f} ms", flush=True)
+        out[part].update(unsharded=unsharded, ranks=ranks)
+        if part == "b":
+            share = max(x["collective_bytes"] for x in ranks) / gathered
+            print(f"phase13b collectives: {share:.5f} of the {gathered} "
+                  f"bytes of the f32 volume (limit {HYP_BYTES_SHARE})",
+                  flush=True)
+            check(share < HYP_BYTES_SHARE, f"phase13b collectives moved "
+                  f"{share:.4f} of the gathered volume")
+            out[part]["collective_share_of_gather"] = share
     d_ref = ref["d_ref"]
     for r, res in enumerate(ranks_b):
         c = res["d"]["counts"]
@@ -3064,6 +3227,7 @@ def phase13_distribution(dev, single_step_ms):
                            rank_step_ms=[res["step_ms"] for res in ranks_a],
                            spawn_s=spawn_a),
         hyp_serving=out["b"], vis_view_serving=out["c"],
+        vis_hyp_serving=out["f_vis"], cvp_hyp_serving=out["f_cvp"],
         data_parallel=dict(loss=loss, single_loss=d_ref["loss"],
                            grad_rel_l2=g_rel,
                            ms=[res["d"]["ms"] for res in ranks_b],

@@ -390,9 +390,10 @@ def test_data_parallel_step_syncs_batch_norm(ranks, masks):
 
 
 def test_mvsnet_and_cvp_hyp_slabs_equal_unsharded(ranks):
-    """hyp = 2: each rank sweeps half the hypotheses, the slabs are
-    gathered before the regularizer; the depth equals the unsharded
-    forward's within 1e-4 (tests/test_view_parallel.py:70-106, :202-243)."""
+    """hyp = 2: each rank sweeps half the hypotheses and keeps its slab
+    through the depth-partitioned regularizer, the softmax and regression
+    reduced over the slabs; the depth equals the unsharded forward's
+    within 1e-4 (tests/test_view_parallel.py:70-106, :202-243)."""
     args = eval_args()
     for name, arch, kw in (("mvsnet_hyp2", "mvsnet", dict(num_depth=8)),
                            ("cvp_hyp2", "cvp_mvsnet", dict(nscale=2))):
@@ -405,10 +406,13 @@ def test_mvsnet_and_cvp_hyp_slabs_equal_unsharded(ranks):
 
 
 def test_mvsnet_hyp_step_gradients_equal_unsharded(ranks):
-    """A supervised MVSNet step at hyp = 2: the gather's backward sums the
-    cotangent over the hyp ranks, the step's mean over the ranks halves
-    it again, so every gradient equals the unsharded step's (within f32
-    summation order), and so do the loss and the statistics."""
+    """A supervised MVSNet step at hyp = 2: each rank back-propagates half
+    the loss, the reductions over depth add the halves back up for each
+    slab, each rank holds its slab's share of the regularizer's gradient
+    (train/trainer.py's rule), and the sum over the ranks equals the
+    unsharded step's gradient (within f32 summation order); so do the
+    loss and the BatchNorm statistics, the regularizer's normalized over
+    both slabs."""
     want = single_step(sup_config(b=1), make_batch([0], 3))
     assert all(g.abs().max() > 0 for g in want[2].values())
     assert_step_equal(ranks["mvsnet_hyp2_step"], want, 1e-6, 2e-5, 2e-5)
@@ -416,7 +420,8 @@ def test_mvsnet_hyp_step_gradients_equal_unsharded(ranks):
 
 def test_vis_view_by_hyp_equals_unsharded(ranks):
     """Vis-MVSNet at view 2 x hyp 2: a source pair and half of each stage's
-    hypotheses a rank; the fused volume's sums added over the view ranks.
+    hypotheses a rank, kept through the depth-partitioned Reg, RegPair and
+    RegFuse; the fused volume's sums added over the view ranks.
     The depth and every pair's depth and uncertainty equal the unsharded
     forward's within 1e-4 (tests/test_view_parallel.py:164-199); outside
     the mesh the same model runs unsharded."""

@@ -9,8 +9,14 @@ Axes, as in the JAX package:
         on the whole batch, as JAX's SPMD step does.
   view  reference views (view-parallel occlusion-masked training,
         dist/view_parallel.py) or Vis-MVSNet's source pairs (serving).
-  hyp   the depth hypotheses: each rank sweeps a contiguous slab and the
-        slabs are gathered before the regularizer.
+  hyp   the depth hypotheses: each rank sweeps a contiguous slab and keeps
+        it through the 3D regularizer (dist/depth_parallel.py: each conv
+        fetches its boundary planes from the neighbouring slabs,
+        `fetch_range`) and the reductions over depth (ops/volumes.py,
+        `Slab`).
+  data_hyp  the data x hyp plane of ranks that share a view index: a
+        partitioned regularizer's train-mode BatchNorm normalizes over it
+        when the step syncs BatchNorm over data.
 
 JAX's one SPMD program over a device mesh becomes one process a rank, on
 torch.distributed (gloo or nccl): `spawn` starts the ranks as processes
@@ -21,10 +27,12 @@ as `jax.set_mesh` does, so that a model built with `hyp_axis="hyp"` shards
 inside the context and runs unsharded outside it.
 
 Every collective here is an all_reduce or a broadcast, which gloo serves
-for CPU and CUDA tensors alike (its all_gather takes CPU tensors only): a
-gather is an all_reduce(SUM) of a zero-filled tensor into which each rank
-wrote its own slab, which adds zeros only and so equals a gather bit for
-bit.
+for CPU and CUDA tensors alike (its all_gather and send/recv take CPU
+tensors only): a gather is an all_reduce(SUM) of a zero-filled tensor into
+which each rank wrote its own slab, which adds zeros only and so equals a
+gather bit for bit; `fetch_range` does the same with a buffer the size of
+the halos. Each rank counts the bytes it hands to collectives
+(`collective_bytes`).
 """
 from __future__ import annotations
 
@@ -41,6 +49,24 @@ import torch
 import torch.distributed as dist
 
 AXES = ("data", "view", "hyp")
+
+_BYTES = [0]
+
+
+def collective_bytes() -> int:
+    """Bytes this process has handed to all_reduce and broadcast since the
+    last `reset_collective_bytes` (each call's buffer, once)."""
+    return _BYTES[0]
+
+
+def reset_collective_bytes() -> None:
+    _BYTES[0] = 0
+
+
+def _all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> None:
+    """dist.all_reduce in place, counted."""
+    _BYTES[0] += t.numel() * t.element_size()
+    dist.all_reduce(t, op=op, group=group)
 
 
 def initialize(backend: str = "gloo", init_method: str = "env://",
@@ -162,9 +188,28 @@ def make_mesh(data: int = 0, view: int = 1, hyp: int = 1) -> Mesh:
                 if me in line:
                     mine = (g, line)
         axes[name] = MeshAxis(name, mine[0], shape[name], where[a], mine[1])
+    axes["data_hyp"] = _plane(grid, where, axes)
     axes["all"] = MeshAxis("all", dist.group.WORLD if n > 1 else None, n, me,
                            tuple(range(n)))
     return Mesh(shape, axes)
+
+
+def _plane(grid, where, axes) -> MeshAxis:
+    """This rank's data x hyp plane (the ranks of its view index, in
+    (data, hyp) order): the data or hyp axis itself when the other has size
+    1, else a group of its own (every rank creates every plane's)."""
+    data, hyp = axes["data"], axes["hyp"]
+    if data.size == 1 or hyp.size == 1:
+        line = hyp if data.size == 1 else data
+        return dataclasses.replace(line, name="data_hyp")
+    mine = None
+    for v in range(grid.shape[1]):
+        ranks = tuple(int(r) for r in grid[:, v, :].reshape(-1))
+        g = _new_group(ranks)
+        if v == where[1]:
+            mine = (g, ranks)
+    return MeshAxis("data_hyp", mine[0], len(mine[1]),
+                    where[0] * hyp.size + where[2], mine[1])
 
 
 def process_local_order(order, global_batch_size: int,
@@ -220,6 +265,7 @@ def replicate(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
         return module
     tensors = list(module.parameters()) + list(module.buffers())
     flat = torch.cat([t.detach().reshape(-1).double() for t in tensors])
+    _BYTES[0] += flat.numel() * flat.element_size()
     dist.broadcast(flat, src=ax.ranks[0], group=ax.group)
     offset = 0
     for t in tensors:
@@ -269,14 +315,15 @@ def all_reduce(x: torch.Tensor, axis: Optional[MeshAxis],
     if axis is None or axis.group is None:
         return x
     y = x.detach().contiguous().clone()
-    dist.all_reduce(y, op=op, group=axis.group)
+    _all_reduce_(y, axis.group, op)
     return y
 
 
 class _AllReduceSum(torch.autograd.Function):
     """all_reduce(SUM) whose backward is the all_reduce(SUM) of the
     cotangent: the sum's adjoint on every rank, each rank's loss counting
-    for its own."""
+    for its own. Where every rank of the axis holds the same loss, each
+    must back-propagate loss / ranks (train/trainer.py's rule)."""
 
     @staticmethod
     def forward(ctx, x, axis):
@@ -304,7 +351,7 @@ def sum_gradients(module: torch.nn.Module, axis: Optional[MeshAxis]) -> None:
         return
     params = [p for p in module.parameters() if p.grad is not None]
     flat = torch.cat([p.grad.reshape(-1).float() for p in params])
-    dist.all_reduce(flat, group=axis.group)
+    _all_reduce_(flat, axis.group)
     offset = 0
     for p in params:
         p.grad.copy_(flat[offset:offset + p.numel()].view_as(p))
@@ -345,7 +392,7 @@ class _GatherSlabs(torch.autograd.Function):
     @staticmethod
     def forward(ctx, slab, axis, dim, n):
         full, lo, hi = _scatter_slab(slab, axis, dim, n)
-        dist.all_reduce(full, group=axis.group)
+        _all_reduce_(full, axis.group)
         ctx.axis, ctx.dim, ctx.lo, ctx.hi = axis, dim, lo, hi
         ctx.dtype = slab.dtype
         return full.to(slab.dtype)
@@ -365,3 +412,136 @@ def gather_slabs(slab: torch.Tensor, axis: Optional[MeshAxis], dim: int,
     if axis is None or axis.group is None:
         return slab
     return _GatherSlabs.apply(slab, axis, dim, n)
+
+
+# ---------------------------------------------------------------------------
+# depth slabs: this rank's slab, and the halos of its neighbours
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Slab:
+    """This rank's slab [lo, hi) of n items split over `axis` by
+    `slab_bounds`: what a reduction over the split dimension needs to
+    number its items globally and to sum over the axis."""
+    axis: MeshAxis
+    n: int
+    lo: int
+    hi: int
+
+
+def depth_slab(n: int, axis: Optional[MeshAxis]) -> Optional[Slab]:
+    """This rank's Slab of n items over the axis; None when the axis spans
+    one rank (the unsharded program)."""
+    if axis is None or axis.group is None:
+        return None
+    return Slab(axis, n, *my_slab(n, axis))
+
+
+def _halo_segments(bounds, wants, n):
+    """The planes each rank wants within [0, n) but does not own, as
+    (rank, lo, hi, offset) runs of one buffer, in rank order; and the
+    buffer's length."""
+    segs, off = [], 0
+    for r, ((own_lo, own_hi), (lo, hi)) in enumerate(zip(bounds, wants)):
+        lo, hi = max(lo, 0), min(hi, n)
+        for a, b in ((lo, min(hi, own_lo)), (max(lo, own_hi), hi)):
+            if b > a:
+                segs.append((r, a, b, off))
+                off += b - a
+    return segs, off
+
+
+def _zeros_as(x: torch.Tensor, dim: int, length: int) -> torch.Tensor:
+    """Zeros shaped as x with `length` along dim, in x's memory format."""
+    shape = list(x.shape)
+    shape[dim] = length
+    fmt = (torch.channels_last_3d if x.dim() == 5 and not x.is_contiguous()
+           and x.is_contiguous(memory_format=torch.channels_last_3d)
+           else torch.contiguous_format)
+    return torch.empty(shape, dtype=x.dtype, device=x.device,
+                       memory_format=fmt).zero_()
+
+
+class _FetchRange(torch.autograd.Function):
+    """Planes [lo, hi) of a tensor split into slabs along `dim`: this
+    rank's own planes, its neighbours' through one all_reduce of a
+    zero-filled buffer the size of every rank's halos, zeros outside
+    [0, n). The backward returns each borrowed plane's cotangent to its
+    owner, which adds it, through the same buffer."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, n, wants, segs, total):
+        bounds = slab_bounds(n, axis)
+        me = axis.index
+        own_lo, own_hi = bounds[me]
+        buf = _zeros_as(x, dim, total)
+        for r, a, b, off in segs:
+            lo, hi = max(a, own_lo), min(b, own_hi)
+            if r != me and hi > lo:
+                buf.narrow(dim, off + lo - a, hi - lo).copy_(
+                    x.narrow(dim, lo - own_lo, hi - lo))
+        _all_reduce_(buf, axis.group)
+        lo, hi = wants[me]
+        out = _zeros_as(x, dim, hi - lo)
+        a, b = max(lo, own_lo), min(hi, own_hi)
+        if b > a:
+            out.narrow(dim, a - lo, b - a).copy_(
+                x.narrow(dim, a - own_lo, b - a))
+        for r, a, b, off in segs:
+            if r == me:
+                out.narrow(dim, a - lo, b - a).copy_(
+                    buf.narrow(dim, off, b - a))
+        ctx.args = (axis, dim, n, wants, segs, total)
+        ctx.x_shape = x.shape
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, dim, n, wants, segs, total = ctx.args
+        me = axis.index
+        own_lo, own_hi = slab_bounds(n, axis)[me]
+        lo, hi = wants[me]
+        buf = _zeros_as(g, dim, total)
+        for r, a, b, off in segs:
+            if r == me:
+                buf.narrow(dim, off, b - a).copy_(g.narrow(dim, a - lo, b - a))
+        _all_reduce_(buf, axis.group)
+        gx = g.new_zeros(ctx.x_shape)
+        a, b = max(lo, own_lo), min(hi, own_hi)
+        if b > a:
+            gx.narrow(dim, a - own_lo, b - a).copy_(
+                g.narrow(dim, a - lo, b - a))
+        for r, a, b, off in segs:
+            lo2, hi2 = max(a, own_lo), min(b, own_hi)
+            if r != me and hi2 > lo2:
+                gx.narrow(dim, lo2 - own_lo, hi2 - lo2).add_(
+                    buf.narrow(dim, off + lo2 - a, hi2 - lo2))
+        return gx, None, None, None, None, None, None
+
+
+def fetch_range(x: torch.Tensor, axis: MeshAxis, dim: int, n: int,
+                lo: int, hi: int, wants) -> torch.Tensor:
+    """Planes [lo, hi) along `dim` of an n-long dimension split over the axis
+    by `slab_bounds`, of which `x` is this rank's slab; planes outside
+    [0, n) are zeros (a convolution's zero padding). Differentiable: each
+    borrowed plane's cotangent returns to its owner.
+
+    Every rank of the axis calls it, each with its own range; `wants` is
+    every rank's (lo, hi) in axis order, which each rank needs for the
+    layout of the shared halo buffer. When no rank wants a plane it does
+    not own, no collective runs."""
+    own = my_slab(n, axis)
+    assert tuple(wants[axis.index]) == (lo, hi), (wants, lo, hi)
+    assert x.shape[dim] == own[1] - own[0], (x.shape, dim, own)
+    segs, total = _halo_segments(slab_bounds(n, axis), wants, n)
+    if total:
+        return _FetchRange.apply(x, axis, dim, n, tuple(wants), tuple(segs),
+                                 total)
+    # nothing to borrow on any rank: this rank's planes and zeros
+    a, b = max(lo, own[0]), min(hi, own[1])
+    start = a - own[0]
+    if b <= a:                                   # all outside [0, n)
+        a = b = hi
+        start = 0
+    pad = [0, 0] * (x.dim() - 1 - dim) + [a - lo, hi - b]
+    return torch.nn.functional.pad(x.narrow(dim, start, b - a), pad)

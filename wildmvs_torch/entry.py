@@ -64,7 +64,9 @@ def _phases(n: int, device) -> list:
     head = f"dryrun_multichip({n})"
 
     # phase 1: data x hyp, the supervised data-parallel step (BatchNorm
-    # synced over data) with the cost volume's hypotheses over hyp
+    # synced over data) with the hypotheses over hyp: each rank keeps its
+    # slab through the depth-partitioned regularizer, whose BatchNorm
+    # normalizes over the data x hyp plane
     hyp = 2 if n % 2 == 0 and n > 1 else 1
     mesh = M.make_mesh(data=n // hyp, view=1, hyp=hyp)
     cfg = TrainConfig(architecture="mvsnet", dataset="synthetic",
@@ -77,7 +79,7 @@ def _phases(n: int, device) -> list:
     loss = float(m["train_loss"])
     assert np.isfinite(loss), loss
     lines.append(f"{head} phase1: mesh={mesh.shape} supervised DP + "
-                 f"hyp-slab train_loss={loss:.4f} OK")
+                 f"depth-partitioned train_loss={loss:.4f} OK")
 
     # phase 2: data x view, the view-parallel occlusion-masked step
     if n % 4 == 0:
@@ -96,7 +98,7 @@ def _phases(n: int, device) -> list:
                      f"occ_masking train_loss={loss:.4f} OK")
 
     # phase 3: view x hyp, Vis-MVSNet eval with the source pairs over view
-    # and each pair's hypotheses over hyp
+    # and each pair's volumes depth-partitioned over hyp
     if n % 2 == 0:
         mesh = M.make_mesh(data=1, view=2, hyp=n // 2)
         model = build_model("vis_mvsnet", device=device,
@@ -107,9 +109,10 @@ def _phases(n: int, device) -> list:
             depth = model(*_args(_tiny_batch(1, device)))["depth"]
         assert torch.isfinite(depth).all()
         lines.append(f"{head} phase3: mesh={mesh.shape} vis_mvsnet "
-                     f"pair+slab-sharded eval OK")
+                     f"pair-sharded, depth-partitioned eval OK")
 
-    # phase 4: CVP-MVSNet eval with the coarse sweep's hypotheses over hyp
+    # phase 4: CVP-MVSNet eval with the coarse level depth-partitioned over
+    # hyp
     if n % 2 == 0:
         data = 2 if n % 4 == 0 else 1
         mesh = M.make_mesh(data=data, view=1, hyp=n // data)
@@ -119,7 +122,7 @@ def _phases(n: int, device) -> list:
             depth = model(*_args(_tiny_batch(1, device)))["depth"]
         assert torch.isfinite(depth).all()
         lines.append(f"{head} phase4: mesh={mesh.shape} cvp_mvsnet "
-                     f"hyp-slab-sharded eval OK")
+                     f"depth-partitioned eval OK")
     return lines
 
 

@@ -12,9 +12,10 @@ top-left crop leaves K unchanged).
 
 Runs on the card ("cuda") unless constructed with device="cpu". With a
 `mesh` (dist/mesh.py), every rank of it builds the predictor and calls it
-with the same request, which is sharded over the ranks: the depth
-hypotheses over "hyp", Vis-MVSNet's source pairs over "view"; every rank
-returns the whole result.
+with the same request, which is sharded over the ranks: over "hyp" each
+rank sweeps its slab of the depth hypotheses and keeps it through the
+depth-partitioned 3D regularizer (dist/depth_parallel.py), over "view"
+Vis-MVSNet's source pairs; every rank returns the whole result.
 """
 from __future__ import annotations
 

@@ -38,12 +38,18 @@ Cost-volume backends (`sweep_method`), per level:
             (pipeline/depthmaps.py).
 Views of different sizes take "warp" where "fused" was chosen.
 
-Depth-slab sharding (`hyp_axis`, cvp_mvsnet.py:249-254 and :343-420 of
+Depth-slab sharding (`hyp_axis`, cvp_mvsnet.py:249-254 and :395-417 of
 the JAX package): inside `dist.mesh.use_mesh` of a mesh whose axis of
-that name spans several ranks, the coarsest level's full sweep is split
-into contiguous slabs of its hypotheses, one a rank ("rect" takes the
-exact "fused" path there), gathered along D before the regularizer; the
-refinement levels (8 per-pixel hypotheses) stay unsharded, as in JAX.
+that name spans several ranks, the coarsest level is partitioned over
+depth: each rank sweeps its contiguous slab of the hypotheses ("rect"
+takes the exact "fused" path there), runs the regularizer on it
+(dist/depth_parallel.py: boundary planes fetched from the neighbours for
+each 3D conv) and the softmax and regression reduce over the slabs
+(ops/volumes.py); every rank holds the whole coarse depth. The refinement
+levels (8 per-pixel hypotheses) run unsharded on every rank, as in JAX;
+they share the regularizer, so only the coarse call runs partitioned.
+Under `remat_levels` the coarse level's recomputation in the backward
+replays its halo exchanges, on every rank in the same order.
 
 The hypotheses keep their gradient: the regression's depth flows back
 through the upsampled coarser depth as in the JAX package; the sampling
@@ -60,13 +66,15 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..dist.mesh import active_axis, gather_slabs, my_slab
+from ..dist.depth_parallel import depth_partitioned
+from ..dist.mesh import active_axis, depth_slab
 from ..geometry.projective import build_proj_matrices, scale_K
 from ..nn.blocks import (ConvBnReLU, ConvTransposeBnReLU, cast_convs,
                          frozen_running_stats, init_weights)
 from ..ops.resize import bicubic_double, bilinear_half
 from ..ops.select import masked_median
-from ..ops.volumes import depth_regression, photometric_confidence
+from ..ops.volumes import (depth_regression, photometric_confidence,
+                           softmax_depth)
 from .api import register_model, view_list
 from .mvsnet import SWEEP_METHODS, compute_in, sweep_cost_volume
 
@@ -249,40 +257,43 @@ class CVPMVSNet(nn.Module):
         return method
 
     def cost_volume(self, flevel, proj, hyp, method: str,
-                    shard: bool = False) -> torch.Tensor:
-        """The variance cost volume [B, D, H, W, C] of one level.
+                    slab=None) -> torch.Tensor:
+        """The variance cost volume [B, D, H, W, C] of one level (this
+        rank's slab of it with `slab`).
 
         Args:
           flevel: the level's features, reference first ([B, h_i, w_i, C]).
           proj: [B, N, 4, 4] projections at the level, reference first.
-          hyp: [B, D] or [B, D, H, W] f32 hypotheses.
+          hyp: [B, D] or [B, D, H, W] f32 hypotheses, all D.
           method: "gather" | "warp" | "fused" | "rect" (`resolve_sweep`).
-          shard: sweep this rank's slab of the hypotheses over an active
-            hyp_axis and gather the slabs.
+          slab: a dist.mesh.Slab of the hypotheses: sweep this rank's.
         """
         srcs = flevel[1:]
         projs = [proj[:, i] for i in range(1, len(flevel))]
-        ax = active_axis(self.hyp_axis) if shard else None
-        if ax is None:
+        if slab is None:
             return sweep_cost_volume(flevel[0], srcs, projs, proj[:, 0], hyp,
                                      method)
-        lo, hi = my_slab(hyp.shape[1], ax)
-        cost = sweep_cost_volume(flevel[0], srcs, projs, proj[:, 0],
-                                 hyp[:, lo:hi],
+        return sweep_cost_volume(flevel[0], srcs, projs, proj[:, 0],
+                                 hyp[:, slab.lo:slab.hi],
                                  "fused" if method == "rect" else method)
-        return gather_slabs(cost, ax, 1, hyp.shape[1])
 
-    def regress(self, cost: torch.Tensor, hyp: torch.Tensor):
-        """(prob [B, D, H, W] f32, depth [B, H, W] f32) of a cost volume."""
-        prob = torch.softmax(self.cost_reg_refine(cost).float(), dim=1)
-        return prob, depth_regression(prob, hyp)
+    def regress(self, cost: torch.Tensor, hyp: torch.Tensor, slab=None):
+        """(prob [B, D, H, W] f32, depth [B, H, W] f32) of a cost volume;
+        with `slab`, the regularizer depth-partitioned and prob this rank's
+        slab."""
+        with depth_partitioned(self.cost_reg_refine,
+                               None if slab is None else slab.axis,
+                               hyp.shape[1]):
+            logits = self.cost_reg_refine(cost)
+        prob = softmax_depth(logits.float(), slab)
+        return prob, depth_regression(prob, hyp, slab)
 
-    def _level(self, flevel, proj, hyp, method, shard=False):
+    def _level(self, flevel, proj, hyp, method, slab=None):
         """(prob, depth) of one level; with remat_levels in train mode, the
         cost volume and regularizer are recomputed in the backward."""
         if not (self.remat_levels and self.training):
             return self.regress(self.cost_volume(flevel, proj, hyp, method,
-                                                 shard), hyp)
+                                                 slab), hyp, slab)
         replay = []
 
         def run(proj, hyp, *flevel):
@@ -291,7 +302,7 @@ class CVPMVSNet(nn.Module):
             replay.append(True)
             with ctx:
                 return self.regress(self.cost_volume(list(flevel), proj, hyp,
-                                                     method, shard), hyp)
+                                                     method, slab), hyp, slab)
         return checkpoint(run, proj, hyp, *flevel, use_reentrant=False)
 
     def forward(self, imgs, K, R, t, depth_min, depth_max,
@@ -346,8 +357,8 @@ class CVPMVSNet(nn.Module):
         steps = torch.arange(nhyp, dtype=torch.float32, device=dmin.device)
         hyp = dmin[:, None] + steps * ((dmax - dmin) / nhyp)[:, None]
         proj = build_proj_matrices(level_K(nscale - 1), Ro, to)
-        prob, depth = self._level(feats[nscale - 1], proj, hyp, method,
-                                  shard=True)
+        slab = depth_slab(nhyp, active_axis(self.hyp_axis))
+        prob, depth = self._level(feats[nscale - 1], proj, hyp, method, slab)
         depth_est_list = [depth]
 
         # refinement levels: +-4 hypotheses around the upsampled depth
@@ -365,6 +376,7 @@ class CVPMVSNet(nn.Module):
                                      dmax)
             proj = build_proj_matrices(Ks, Ro, to)
             prob, depth = self._level(feats[level], proj, hyp, method)
+            slab = None                  # prob is whole from here on
             depth_est_list.append(depth)
 
         depth_est_list.reverse()                       # finest first
@@ -372,5 +384,6 @@ class CVPMVSNet(nn.Module):
             "depth": depth_est_list[0],
             "depth_est_list": depth_est_list,
             "depth_pair_list": [],
-            "photometric_confidence": photometric_confidence(prob.detach()),
+            "photometric_confidence": photometric_confidence(prob.detach(),
+                                                             slab),
         }

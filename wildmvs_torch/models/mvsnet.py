@@ -33,14 +33,18 @@ Views of different sizes go through "warp" where "fused" was chosen: the
 warp kernel takes any source size, one launch per source view.
 
 Depth-slab sharding (`hyp_axis`, the JAX package's mvsnet.py:119-123,
-:279-285): inside `dist.mesh.use_mesh` of a mesh whose axis of that name
+:279-287): inside `dist.mesh.use_mesh` of a mesh whose axis of that name
 spans several ranks, each rank sweeps its contiguous slab of the
 hypotheses (one "fused" launch at eval, one "warp" launch a source view
-in training; "rect" takes the exact "fused" path there) and the slabs
-are gathered along D, differentiably, before CostRegNet, which every rank
-of the axis runs on the whole volume. The JAX package turns its Pallas
-kernel off under the axis; the port's kernels take a sub-range of the
-hypotheses as they are. Outside such a mesh the model runs unsharded.
+in training; "rect" takes the exact "fused" path there) and keeps it:
+CostRegNet runs depth-partitioned (dist/depth_parallel.py: each 3D conv
+fetches its neighbours' boundary planes, every level split by
+`slab_bounds` of its own length), and the softmax, the regression and the
+confidence reduce over the slabs (ops/volumes.py), as JAX's SPMD
+partitioning does. Every rank returns the whole depth and confidence. The
+JAX package turns its Pallas kernel off under the axis; the port's kernels
+take a sub-range of the hypotheses as they are. Outside such a mesh the
+model runs unsharded.
 
 Precision: `dtype` is the networks' compute dtype, `param_dtype` (default
 `dtype`) the dtype of the convolution weights, as flax's pair. Serving
@@ -58,7 +62,8 @@ import contextlib
 import torch
 from torch import nn
 
-from ..dist.mesh import active_axis, gather_slabs, my_slab
+from ..dist.depth_parallel import depth_partitioned
+from ..dist.mesh import active_axis, depth_slab
 from ..geometry.projective import build_proj_matrices, scale_K
 from ..nn.blocks import (ConvBnReLU, ConvTransposeBnReLU, cast_convs,
                          init_weights)
@@ -66,7 +71,8 @@ from ..ops.plane_sweep import plane_sweep_warp
 from ..ops.rect_sweep import exact_fused_volume, rect_cost_volume
 from ..ops.sweep_kernels import mvsnet_planes, sweep_warp
 from ..ops.volumes import (depth_regression, photometric_confidence,
-                           softmin_cost_volume, variance_cost_volume)
+                           softmax_depth, softmin_cost_volume,
+                           variance_cost_volume)
 from .api import register_model, view_list
 
 SWEEP_METHODS = ("auto", "gather", "warp", "fused", "rect")
@@ -289,21 +295,22 @@ class MVSNet(nn.Module):
                                     ragged)
         ref_depths = depth_values[:, reference_frame].contiguous()  # [B, D]
         hyp = active_axis(self.hyp_axis)
+        slab = depth_slab(self.num_depth, hyp)
         sweep_depths = ref_depths
-        if hyp is not None:
-            lo, hi = my_slab(self.num_depth, hyp)
-            sweep_depths = ref_depths[:, lo:hi]
+        if slab is not None:
+            sweep_depths = ref_depths[:, slab.lo:slab.hi]
             method = "fused" if method == "rect" else method
         cost_volume = sweep_cost_volume(
             ref_feature, [feats_l[i] for i in src_idx],
             [proj[:, i] for i in src_idx], proj[:, reference_frame],
             sweep_depths, method, self.agg,
             self.temp if self.agg == "softmin" else None)
-        cost_volume = gather_slabs(cost_volume, hyp, 1, self.num_depth)
-        cost_reg = self.cost_regularization(cost_volume)[..., 0]
-        prob_volume = torch.softmax(cost_reg.float(), dim=1)   # [B, D, H, W]
-        depth = depth_regression(prob_volume, ref_depths)
-        confidence = photometric_confidence(prob_volume.detach())
+        with depth_partitioned(self.cost_regularization, hyp,
+                               self.num_depth):
+            cost_reg = self.cost_regularization(cost_volume)[..., 0]
+        prob_volume = softmax_depth(cost_reg.float(), slab)  # [B, D, H, W]
+        depth = depth_regression(prob_volume, ref_depths, slab)
+        confidence = photometric_confidence(prob_volume.detach(), slab)
         return {
             "depth": depth,
             "depth_est_list": [depth],

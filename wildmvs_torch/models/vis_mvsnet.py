@@ -66,10 +66,23 @@ whose axes of those names span several ranks ("rect" takes the exact
              uncertainties are gathered, so every rank returns what the
              unsharded forward does. Train mode and ragged views keep
              every pair on every rank, as in JAX.
-  hyp_axis   each pair's correlation volume is swept on a contiguous slab
-             of the stage's hypotheses, one a rank, and the slabs are
-             gathered along D (differentiably) before Reg, which every rank
-             of the axis runs on the whole volume.
+  hyp_axis   each rank sweeps every pair's correlation volume on its
+             contiguous slab of the stage's hypotheses and keeps it: Reg,
+             RegPair and RegFuse run depth-partitioned
+             (dist/depth_parallel.py: each 3D conv fetches its
+             neighbours' boundary planes), and the fusion, elementwise
+             over depth, runs on the slabs (under view x hyp its
+             all_reduce over view moves a slab). Train mode too, as JAX's
+             SPMD partitioning of the same program (vis_mvsnet.py:171-174,
+             :366-369). The 1-channel scores of RegPair and RegFuse (an
+             eighth of the Reg volume) are gathered, and soft_argmin and
+             the entropy reduce them whole, bit for bit as the unsharded
+             forward does, where sums over the slabs (ops/volumes.py
+             `slab`) would add in another order: the cascade re-centres
+             each stage on the previous stage's depth and weights the
+             fusion by the entropy, so a last-bit change of one 8-plane
+             entropy sum moves the third stage's pair uncertainties by
+             1e-4 (the unsharded model with that sum reordered does so).
 
 Precision: `dtype` is the networks' compute dtype, `param_dtype` (default
 `dtype`) the dtype of the convolution weights, as in models/mvsnet.py:
@@ -79,10 +92,13 @@ f32 (the JAX package keeps them in the compute dtype).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..dist.depth_parallel import depth_partitioned
 from ..dist.mesh import active_axis, all_reduce, gather_slabs, my_slab
 from ..geometry.projective import scale_K
 from ..losses.supervised import resize_bilinear
@@ -215,10 +231,14 @@ class SingleStage(nn.Module):
         self.uncert_net = UncertNet(dtype)
         self.reg_fuse = RegFuse(dtype)
 
-    def _tail(self, cost, depth_start, depth_interval):
-        """correlation volume -> (reg volume, pair depth, uncertainty)."""
+    def _tail(self, cost, depth_start, depth_interval, hyp=None,
+              depth_num=None):
+        """correlation volume -> (reg volume, pair depth, uncertainty); over
+        an active `hyp` axis the volumes are this rank's slabs of the
+        depth_num hypotheses, the score gathered whole."""
         interm = self.reg(cost)                           # [B, D, H, W, 8]
-        score = self.reg_pair(interm)[..., 0].float()     # [B, D, H, W]
+        score = gather_slabs(self.reg_pair(interm)[..., 0].float(), hyp, 1,
+                             depth_num)                   # [B, D, H, W]
         prob, est_class = soft_argmin(score)
         est_depth = est_class * depth_interval[:, 0] + depth_start[:, 0]
         ent = entropy(prob, axis=1)[..., None]            # [B, H, W, 1]
@@ -284,19 +304,24 @@ class SingleStage(nn.Module):
                                          warped.float(),
                                          GWC_GROUPS).to(dtype)
 
-        pairs = [self._tail(gather_slabs(cost_of(i), hyp, 1, depth_num),
-                            depth_start, depth_interval) for i in mine]
-        if view is not None:
-            fused = self._fuse_stacked_sharded(pairs, view, mine.start,
-                                               n_src)
-            ests, uncs = (gather_slabs(torch.stack([p[j] for p in pairs]),
-                                       view, 0, n_src) for j in (1, 2))
-            pair_results = [(ests[i], (uncs[i],)) for i in range(n_src)]
-        else:
-            pair_results = [(est, (unc,)) for _, est, unc in pairs]
-            fused = (self._fuse_stacked(pairs) if stacked
-                     else self._fuse_sequential(pairs))
-        score = self.reg_fuse(fused)[..., 0].float()
+        with contextlib.ExitStack() as partitioned:
+            for net in (self.reg, self.reg_pair, self.reg_fuse):
+                partitioned.enter_context(depth_partitioned(net, hyp,
+                                                            depth_num))
+            pairs = [self._tail(cost_of(i), depth_start, depth_interval,
+                                hyp, depth_num) for i in mine]
+            if view is not None:
+                fused = self._fuse_stacked_sharded(pairs, view, mine.start,
+                                                   n_src)
+                ests, uncs = (gather_slabs(torch.stack([p[j] for p in pairs]),
+                                           view, 0, n_src) for j in (1, 2))
+                pair_results = [(ests[i], (uncs[i],)) for i in range(n_src)]
+            else:
+                pair_results = [(est, (unc,)) for _, est, unc in pairs]
+                fused = (self._fuse_stacked(pairs) if stacked
+                         else self._fuse_sequential(pairs))
+            score = gather_slabs(self.reg_fuse(fused)[..., 0].float(), hyp,
+                                 1, depth_num)
         _, est_class, prob_map = soft_argmin(score, window=2)
         est_depth = est_class * depth_interval[:, 0] + depth_start[:, 0]
         return est_depth, prob_map, pair_results

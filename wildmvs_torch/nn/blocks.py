@@ -214,7 +214,9 @@ def _synced_bn_forward(bn, axis, x):
     per-channel sum and count, then the sum of squared deviations, each
     all-reduced with autograd (so each rank's gradient reaches the others'
     inputs, and the ranks' gradient mean is the whole batch's gradient).
-    Statistics in f32, the result in the input's dtype; the running
+    The sums accumulate in f64, so that the statistics hardly depend on how
+    the batch is split (torch's CPU kernel accumulates in f64 too), and
+    the rest runs in f32; the result takes the input's dtype; the running
     statistics take torch's momentum update with the unbiased variance of
     the whole batch."""
     if not bn.training:
@@ -222,13 +224,15 @@ def _synced_bn_forward(bn, axis, x):
     dims = [0] + list(range(2, x.dim()))
     shape = [1, -1] + [1] * (x.dim() - 2)
     xf = x.float()
-    local = torch.cat([xf.sum(dims), xf.new_full((1,), x.numel()
-                                                 / x.shape[1])])
+    f64 = torch.float64
+    local = torch.cat([xf.sum(dims, dtype=f64),
+                       xf.new_full((1,), x.numel() / x.shape[1], dtype=f64)])
     total = all_reduce_sum(local, axis)
     count = total[-1].detach()
-    mean = total[:-1] / count
+    mean = (total[:-1] / count).float()
     dev = xf - mean.reshape(shape)
-    var = all_reduce_sum((dev * dev).sum(dims), axis) / count
+    var = (all_reduce_sum((dev * dev).sum(dims, dtype=f64), axis)
+           / count).float()
     y = dev * torch.rsqrt(var + bn.eps).reshape(shape)
     if bn.affine:
         y = y * bn.weight.reshape(shape) + bn.bias.reshape(shape)

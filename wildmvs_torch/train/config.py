@@ -44,7 +44,7 @@ class TrainConfig:
     remat_levels: bool = False         # cvp_mvsnet only
     packed_training: bool = False      # cvp_mvsnet only
     num_depth: int = 192               # mvsnet hypothesis count
-    hyp_axis: "str | None" = None      # depth-slab sharding (JAX mesh axis)
+    hyp_axis: "str | None" = None      # depth partitioning (JAX mesh axis)
 
     def __post_init__(self):
         # constraint propagation, reference train.py:305-309

@@ -30,6 +30,33 @@ reference views over the ranks (`train_step`, dist/view_parallel.py).
 over "hyp" where the model was built so) or, with occ_masking, the
 view-parallel step, over the ranks of a dist/mesh.py mesh.
 
+The gradient over a mesh, and why it is the single program's: every
+rank back-propagates loss / copies, where copies is the number of ranks
+that hold the same loss (its view x hyp ranks in the data-parallel step,
+every rank in the view-parallel one), and the parameters' gradients are
+then summed over every rank. Each collective on the way is differentiated
+by its adjoint: `all_reduce_sum` by the all_reduce of the cotangent,
+`gather_slabs` by the all_reduce of the cotangent cut to this rank's slab,
+`fetch_range` (a partitioned conv's halo) by returning each borrowed
+plane's cotangent to its owner, and the detached MAX of the softmax by
+nothing. So the step is one program's backward spread over the ranks:
+  * a replicated part (FeatureNet, UncertNet, the loss) computed alike by
+    the copies holds 1/copies of its share on each; the sum counts it
+    once;
+  * each hyp rank's slab of a depth-partitioned regularizer receives its
+    whole cotangent (the reductions over depth add the copies' 1/copies
+    shares back up), so the rank holds its slab's share of the
+    regularizer's gradient, and the sum over the hyp ranks is the whole;
+  * no reduction needs a backward that does not re-sum: a rank that
+    back-propagated its whole loss, not loss / copies, would count a
+    replicated loss copies times through those all_reduces.
+Train-mode BatchNorm follows the same split: FeatureNet's and UncertNet's
+are synced over `data` alone (each hyp rank holds the same rows: summing
+over hyp would count a sample hyp times), a partitioned regularizer's
+over its slabs on every rank of the data x hyp plane
+(dist/depth_parallel.py), so every rank keeps the same running
+statistics, which take the unbiased variance of the whole batch.
+
 Model-output contract (models/api.py): depth_est_list entries are [B, h, w]
 (finest first); depth_pair_list entries are lists of
 (depth [B, h, w], (uncertainty [B, h, w],)) per source pair.
@@ -327,8 +354,8 @@ def train_step(state: TrainState, batch: dict, config: TrainConfig,
         normalizes over the whole batch (`synced_batch_norm` over
         "data"), every masked mean counts its mask over the whole batch
         (loss_from_outputs' data_axis), and a model built with hyp_axis
-        sweeps its slab of the hypotheses. The gradient is the whole
-        batch's.
+        sweeps its slab of the hypotheses and keeps it through its
+        depth-partitioned regularizer. The gradient is the whole batch's.
       * with occ_masking, the view-parallel step (dist/view_parallel.py,
         JAX's make_view_parallel_train_step): view rank v takes its slab
         of the reference views, the depths are gathered over "view", each
@@ -340,9 +367,9 @@ def train_step(state: TrainState, batch: dict, config: TrainConfig,
     model.train()
     state.optimizer.zero_grad(set_to_none=True)
     # each rank back-propagates its loss / copies, and the gradients are
-    # summed: view-parallel, the mean over the ranks; otherwise each data
-    # rank's share of the whole batch's loss, held alike by its view x hyp
-    # ranks
+    # summed (module docstring): view-parallel, the mean over the ranks;
+    # otherwise each data rank's share of the whole batch's loss, held
+    # alike by its view x hyp ranks
     view = data = None
     copies = 1
     if mesh is not None and _occ_masked(config):
