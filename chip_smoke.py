@@ -141,6 +141,19 @@ JAX or of the JAX package. Phases, each of which stops the run if it fails:
      (keep masks equal, distances within 1e-12), ms of each; the
      BlendedMVS loader and MegaDepth's resize, ms a sample beside phase
      5's step, native against PIL where the image module linked.
+ 16. the port's benchmark (`phase16_bench`, the path "bench"): (a)
+     `python -m wildmvs_torch.bench` in a subprocess, under PyTorch's
+     default TF32 flags and the bench's default switches, with the kernel
+     library built above: its ten fields (MVSNet, Vis-MVSNet and
+     CVP-MVSNet at their training-resolution eval configurations and at
+     the 1184x1600 N5 eval protocol, exact and rect, Vis also with the
+     trained asset) each > 0 and finite with its diagnostics, finite_share
+     1, the kernel launches a forward of BENCH_LAUNCHES, mfu_pct and
+     kernel_pct <= MFU_LIMIT; its last record is printed. (b) One forward
+     of every field in this process (the path's launch counts), each
+     launch held to its plain version on its own inputs under compare's
+     limit: the bench's shapes and rigs (the 0.1 mm `scene` rig too), which
+     phase 1's cases do not cover.
 
 Phase 1 also holds sweep_warp_backward to its plain version ([D], [D,H,W]
 and the behind-camera rig) and times it against torch's
@@ -173,6 +186,7 @@ last, the device JSON line.
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -185,6 +199,7 @@ import torch
 import torch.nn.functional as F
 
 from wildmvs_torch import _build
+from wildmvs_torch import bench as port_bench
 from wildmvs_torch import cpp as native
 from wildmvs_torch.data import loaders
 from wildmvs_torch.data.synthetic import (SyntheticMVSDataset, collate,
@@ -217,8 +232,6 @@ from wildmvs_torch.train import trainer as T
 from wildmvs_torch.train.checkpoint import save_checkpoint
 from wildmvs_torch.train.config import TrainConfig
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
-F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
 HEADLINE = dict(n=3, h=512, w=640, f=1156.8)
 EVAL = dict(n=5, h=1184, w=1600, f=2892.0)
 NUM_DEPTH = 192
@@ -355,27 +368,7 @@ def timed(fn):
     return graph_ms(fn), cuda_ms(fn, reps=50, warmup=5)
 
 
-def live_samples(P, Q, s, h, w, scale=sk.UNIT_SCALE, clamp=None) -> int:
-    """Bilinear samples that read the source (the data-dependent work), in
-    the sweep's convention."""
-    x, y = sk.source_coords(*sk._project(P, Q, s), scale, clamp)
-    x0, y0 = torch.floor(x), torch.floor(y)
-    live = (x0 >= -1) & (x0 <= w - 1) & (y0 >= -1) & (y0 <= h - 1)
-    return int(live.sum())
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bound(bytes_moved: int, flops: float):
-    """(bound_ms, bound_by): the larger of the byte and operation times."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def compare(name, got, want, extra=""):
+def compare(name, got, want, extra="", phase="phase1"):
     """Max abs error of kernel vs plain, held to one bf16 ulp of the scale:
     both round the same f32 arithmetic to bf16 once; FMA contraction and
     summation order may move a value across a rounding boundary."""
@@ -383,7 +376,7 @@ def compare(name, got, want, extra=""):
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
     limit = 2.0 ** -7 * max(scale, 1e-6)
-    print(f"phase1 {name}: max_abs_err {err:.6g} limit {limit:.6g} "
+    print(f"{phase} {name}: max_abs_err {err:.6g} limit {limit:.6g} "
           f"(scale {scale:.4g}){extra}", flush=True)
     check(err <= limit, f"{name}: kernel vs plain {err} > {limit}")
     return err
@@ -542,16 +535,6 @@ def kernel_inputs(cfg, dev, C=32):
             K, R, t)
 
 
-def fused_bound(ref, srcs, P, Q, s, out):
-    """bound_ms, bound_by of one fused launch on these inputs."""
-    _, nv, h, w, C = srcs.shape
-    _, D, H, W, _ = out.shape
-    n_live = sum(live_samples(P[:, v], Q[:, v], s, h, w) for v in range(nv))
-    return bound(nbytes(ref, srcs, P, Q, s, out),
-                 n_live * C * 8 + nv * D * H * W * 20
-                 + D * H * W * C * (nv * 3 + 4)), n_live
-
-
 def phase1_kernels(dev):
     """Each kernel vs its plain version at the headline shapes."""
     ref, srcs, P, Q, s, K, R, t = kernel_inputs(HEADLINE, dev)
@@ -622,9 +605,9 @@ def phase1_kernels(dev):
     library_ms = cuda_ms(lambda: F.grid_sample(
         src_nchw, grid, mode="bilinear", padding_mode="zeros",
         align_corners=True), reps=20, warmup=2)
-    n_live = live_samples(*warp_args[1:], fh, fw)
-    b_ms, b_by = bound(nbytes(*warp_args, out),
-                       n_live * C * 8 + NUM_DEPTH * fh * fw * 20)
+    work = sk.warp_work(*warp_args)
+    n_live = work.live_samples
+    b_ms, b_by = sk.bound(work)
     results["sweep_warp"] = dict(
         name="sweep_warp", route="cuda",
         source="wildmvs_torch/csrc/warp.cu",
@@ -649,9 +632,7 @@ def phase1_kernels(dev):
         g_nchw, src_nchw, grid, 0, 0, True, [True, False]), reps=20,
         warmup=2)
     atomics = counted_atomics("[D]", *bwd)
-    df_bytes = fh * fw * C * 4
-    b_ms, b_by = bound(nbytes(g, *warp_args[1:]) + df_bytes,
-                       n_live * C * 8 + NUM_DEPTH * fh * fw * 20)
+    b_ms, b_by = sk.bound(sk.warp_backward_work(*bwd))
     results["sweep_warp_backward"] = dict(
         name="sweep_warp_backward", route="cuda",
         source="wildmvs_torch/csrc/sweep.cu",
@@ -702,7 +683,8 @@ def phase1_kernels(dev):
         *fused_args[("softmin", "D")]), reps=50, warmup=5)
     plain_ms = cuda_ms(lambda: sk.fused_cost_volume_plain(*a), reps=3,
                        warmup=1)
-    (b_ms, b_by), n_live = fused_bound(ref, srcs, P, Q, s, out)
+    work = sk.fused_work(ref, srcs, P, Q, s)
+    (b_ms, b_by), n_live = sk.bound(work), work.live_samples
     share, plain_share, _ = tile_shares(
         lambda: sk.fused_cost_volume(*a), P, Q, s, (fh, fw),
         sk.fused_plan(C, P.shape[1]))
@@ -734,7 +716,7 @@ def phase1_kernels(dev):
         err = compare(f"fused_cost_volume NV={nv}", out,
                       sk.fused_cost_volume_plain(*a_v))
         ms = graph_ms(lambda: sk.fused_cost_volume(*a_v))
-        (b_ms, b_by), _ = fused_bound(*a_v[:5], out)
+        b_ms, b_by = sk.bound(sk.fused_work(*a_v[:5]))
         views[str(nv)] = dict(max_abs_err=err, ms=ms, bound_ms=b_ms,
                               bound_by=b_by, cells_max=plan[1],
                               staged_share=share)
@@ -942,8 +924,7 @@ def phase3_eval(pred, dev):
     share, plain_share, _ = tile_shares(
         lambda: sk.fused_cost_volume(*a), P, Q, s, tuple(srcs.shape[2:4]),
         sk.fused_plan(ref.shape[-1], P.shape[1]))
-    (b_ms, b_by), _ = fused_bound(*a[:5], torch.empty(
-        (1, NUM_DEPTH) + ref.shape[1:], dtype=torch.bfloat16, device=dev))
+    b_ms, b_by = sk.bound(sk.fused_work(*a[:5]))
     print(f"phase3 fused_cost_volume 296x400 C32 D192 NV4: ms "
           f"{kernel_ms:.4f} (CUDA-graph replay) bound_ms {b_ms:.4f} ({b_by})"
           f"; staged share {share:.4f} (plain rule {plain_share:.4f})",
@@ -1315,10 +1296,9 @@ def phase1_vis_kernels(dev, results):
         grid = vis_grid(P, Q, s, scale, clamp, h, w)
         library_ms = cuda_ms(lambda: gwc_library(src, ref, grid), reps=10,
                              warmup=2)
-        n_live = live_samples(P, Q, s, h, w, scale, clamp)
-        D, H, W = out.shape[1:4]
-        b_ms, b_by = bound(nbytes(src, ref, P, Q, s, out),
-                           n_live * C * 10 + D * H * W * 20)
+        work = sk.gwc_work(src, ref, *vis)
+        n_live = work.live_samples
+        b_ms, b_by = sk.bound(work)
         share, plain_share, _ = tile_shares(
             lambda: sk.sweep_gwc(src, ref, *vis), P, Q, s, (h, w),
             sk.footprint_plan(C), scale, clamp)
@@ -1351,15 +1331,13 @@ def phase1_vis_kernels(dev, results):
         share = warp_share(src, *vis)
         grid = vis_grid(P, Q, s, scale, clamp, h, w)
         src_nchw = src.permute(0, 3, 1, 2)
-        n_live = live_samples(P, Q, s, h, w, scale, clamp)
-        ops = n_live * C * 8 + D * H * W * 20
         ms, events_ms = timed(lambda: sk.sweep_warp(src, *vis))
         plain_ms = cuda_ms(lambda: sk.sweep_warp_plain(src, *vis), reps=3,
                            warmup=1)
         library_ms = cuda_ms(lambda: F.grid_sample(
             src_nchw, grid, mode="bilinear", padding_mode="zeros",
             align_corners=True), reps=20, warmup=2)
-        b_ms, b_by = bound(nbytes(src, P, Q, s, out), ops)
+        b_ms, b_by = sk.bound(sk.warp_work(src, *vis))
         results["sweep_warp"].setdefault("vis", {})[f"stage{stage}"] = dict(
             shape=shape, ms=ms, events_ms=events_ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1377,7 +1355,8 @@ def phase1_vis_kernels(dev, results):
         library_ms = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
             g_nchw, src_nchw, grid, 0, 0, True, [True, False]), reps=20,
             warmup=2)
-        b_ms, b_by = bound(nbytes(g, P, Q, s) + h * w * C * 4, ops)
+        b_ms, b_by = sk.bound(sk.warp_backward_work(
+            *bwd, scale=scale, clamp=clamp))
         atomics = counted_atomics(f"Vis train stage {stage}", *bwd, scale,
                                   clamp)
         results["sweep_warp_backward"].setdefault("vis", {})[
@@ -1794,7 +1773,8 @@ def cvp_level_kernel(lv, name):
     share, plain_share, _ = tile_shares(
         lambda: sk.fused_cost_volume(*a), P, Q, s, (fh, fw),
         sk.fused_plan(ref.shape[-1], P.shape[1]))
-    (b_ms, b_by), n_live = fused_bound(ref, srcs, P, Q, s, out)
+    work = sk.fused_work(ref, srcs, P, Q, s)
+    (b_ms, b_by), n_live = sk.bound(work), work.live_samples
     D = s.shape[1]
     shape = (f"{fh}x{fw} D{D} NV{P.shape[1]} C{ref.shape[-1]} "
              f"{'[D,H,W]' if s.dim() == 4 else '[D]'}")
@@ -2358,8 +2338,8 @@ def phase1_rect_kernels(dev, results):
             lambda: sk.fused_cost_volume(ref, srcs, Px, Qx, depth, None,
                                          "variance"), Px, Qx, depth,
             (H, W), sk.fused_plan(C, P.shape[1]))
-        out = sk.fused_cost_volume(*a)
-        (b_ms, b_by), n_live = fused_bound(ref, canvas, P, Q, s, out)
+        work = sk.fused_work(ref, canvas, P, Q, s)
+        (b_ms, b_by), n_live = sk.bound(work), work.live_samples
         shape = (f"{H}x{W} D{D} NV{P.shape[1]} C{C} "
                  f"{'[D,H,W]' if per_pixel else '[D]'} on "
                  f"{canvas.shape[2]}x{canvas.shape[3]} canvases")
@@ -2373,7 +2353,7 @@ def phase1_rect_kernels(dev, results):
               f"{plain_ms:.3f} bound_ms {b_ms:.4f} ({b_by}) live samples "
               f"{n_live}; staged share {share:.4f} (plain rule "
               f"{plain_share:.4f})", flush=True)
-        del ref, canvas, P, Q, s, srcs, Px, Qx, depth, rsm, out, a
+        del ref, canvas, P, Q, s, srcs, Px, Qx, depth, rsm, a
         torch.cuda.empty_cache()
     results["fused_cost_volume"]["rect"] = rect
 
@@ -2406,10 +2386,9 @@ def phase1_rect_kernels(dev, results):
     share, plain_share, _ = tile_shares(
         lambda: sk.sweep_gwc(*a), P, Q, s, tuple(canvas.shape[1:3]),
         sk.footprint_plan(src.shape[-1]))
-    n_live = live_samples(P, Q, s, *canvas.shape[1:3])
-    D = s.shape[1]
-    b_ms, b_by = bound(nbytes(canvas, ref, P, Q, s, out),
-                       n_live * src.shape[-1] * 10 + D * H * W * 20)
+    work = sk.gwc_work(canvas, ref, P, Q, s)
+    n_live, D = work.live_samples, s.shape[1]
+    b_ms, b_by = sk.bound(work)
     shape = (f"{H}x{W} D{D} C{src.shape[-1]} [D,H,W] on "
              f"{canvas.shape[1]}x{canvas.shape[2]} canvas")
     results["sweep_gwc"]["rect"] = dict(
@@ -3704,6 +3683,130 @@ def phase15_native(clouds, step_ms: float) -> dict:
                 loaders=native_images(step_ms, variant == "full"))
 
 
+#: phase 16: the port's kernel launches per forward in each field of
+#: `python -m wildmvs_torch.bench` under its defaults (fused at MVSNet's and
+#: CVP's every level, rect canvases included; one gwc launch a Vis pair and
+#: stage)
+BENCH_LAUNCHES = {
+    "headline": {"fused_cost_volume": 1},
+    "vis_mvsnet_maps_s": {"sweep_gwc": 6},
+    "cvp_mvsnet_maps_s": {"fused_cost_volume": 5},
+    "mvsnet_train_dtugeo_maps_s": {"fused_cost_volume": 1},
+    "mvsnet_eval_1184x1600_N5_maps_s": {"fused_cost_volume": 1},
+    "mvsnet_eval_1184x1600_N5_rect_maps_s": {"fused_cost_volume": 1},
+    "vis_eval_1184x1600_N5_maps_s": {"sweep_gwc": 12},
+    "vis_eval_1184x1600_N5_trained_maps_s": {"sweep_gwc": 12},
+    "cvp_eval_1184x1600_N5_maps_s": {"fused_cost_volume": 5},
+    "cvp_eval_1184x1600_N5_rect_maps_s": {"fused_cost_volume": 5}}
+BENCH_INFO = ("spread_pct", "median_ms", "bytes_gb", "tflops", "kernel_tops",
+              "roofline_ms", "roofline_frac", "mfu_pct", "kernel_pct",
+              "launches", "peak_gib", "finite_share")
+BENCH_TIMEOUT = 600              # seconds; the whole bench takes ~1-2 min
+#: % of the bf16 peak (mfu_pct) and of the f32 peak (kernel_pct): above
+#: it, a miscount
+MFU_LIMIT = 105.0
+
+
+def bench_subprocess() -> dict:
+    """`python -m wildmvs_torch.bench` under its defaults: its checks
+    (phase16_bench), its last record returned."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("WILDMVS_BENCH_")}
+    proc = subprocess.run([sys.executable, "-m", "wildmvs_torch.bench"],
+                          cwd=Path(__file__).resolve().parent, env=env,
+                          capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+    for line in proc.stderr.splitlines():
+        print(f"phase16 bench: {line}", flush=True)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines, f"the bench exited with "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    record = json.loads(lines[-1])
+    bad = [k for k in record if k.endswith(("_error", "_skipped"))]
+    check(not bad, f"bench fields failed or skipped: {bad}")
+    for key, want in BENCH_LAUNCHES.items():
+        value = record["value" if key == "headline" else key]
+        prefix = "headline" if key == "headline" else key
+        info = {k: record.get(f"{prefix}_{k}") for k in BENCH_INFO}
+        missing = [k for k, v in info.items() if v is None]
+        check(not missing, f"bench {key}: no {missing}")
+        check(value > 0 and np.isfinite(value), f"bench {key}: {value}")
+        check(info["finite_share"] == 1.0, f"bench {key}: finite_share "
+              f"{info['finite_share']}")
+        check(info["launches"] == want, f"bench {key}: launches "
+              f"{info['launches']}, expected {want}")
+        for pct in ("mfu_pct", "kernel_pct"):
+            check(info[pct] <= MFU_LIMIT, f"bench {key}: {pct} "
+                  f"{info[pct]} > {MFU_LIMIT}")
+        print(f"phase16 {key}: {value:.4f} maps/s, median "
+              f"{info['median_ms']:.3f} ms, spread {info['spread_pct']:.2f} "
+              f"%, {info['bytes_gb']:.3f} GB, {info['tflops']:.4f} TFLOP "
+              f"aten, {info['kernel_tops']:.4f} T kernel operations, "
+              f"roofline_frac {info['roofline_frac']:.4f}, mfu "
+              f"{info['mfu_pct']:.3f} %, kernel_pct {info['kernel_pct']:.3f}"
+              f" %, peak {info['peak_gib']:.3f} GiB, launches "
+              f"{info['launches']}", flush=True)
+    print(f"phase16 bench record: {lines[-1]}", flush=True)
+    return record
+
+
+def bench_forwards(dev) -> dict:
+    """One forward of each bench field in this process, each kernel
+    launch held to its plain version on its own inputs (compare's limit;
+    the non-finite elements of both equal), the depth finite. Returns the
+    launches of these forwards: the path "bench"."""
+    errs = {}
+
+    def hold(field):
+        def hook(name, inputs, out):
+            want = sk.PLAIN[name](*inputs)
+            torch.cuda.synchronize()
+            ok_g, ok_w = torch.isfinite(out), torch.isfinite(want)
+            label = f"{field.key} {name} {tuple(out.shape)}"
+            check(torch.equal(ok_g, ok_w), f"{label}: kernel and plain "
+                  f"differ in their non-finite elements")
+            err = compare(label, torch.where(ok_g, out.float(), 0.0),
+                          torch.where(ok_w, want.float(), 0.0),
+                          phase="phase16")
+            errs[name] = max(errs.get(name, 0.0), err)
+        return hook
+
+    sk.reset_launch_counts()
+    for field in port_bench.fields():
+        model, args = port_bench.build(field, dev)
+        with torch.inference_mode(), sk.on_launch(hold(field)):
+            depth = model(*args, **field.forward)["depth"]
+        check(bool(torch.isfinite(depth).all()), f"{field.key}: depth not "
+              f"finite")
+        del model, args, depth
+        torch.cuda.empty_cache()
+    counts = sk.launch_counts()
+    want = {}
+    for per_forward in BENCH_LAUNCHES.values():
+        for name, n in per_forward.items():
+            want[name] = want.get(name, 0) + n
+    check({k: v for k, v in counts.items() if v} == want,
+          f"bench forwards launched {counts}, expected {want}")
+    print(f"phase16 bench forwards: launches {counts}, max_abs_err by "
+          f"kernel {errs}", flush=True)
+    return counts
+
+
+def phase16_bench(dev) -> dict:
+    """The port's benchmark. (a) `python -m wildmvs_torch.bench` in a
+    subprocess under its defaults (PyTorch's default TF32 flags; the
+    kernel library built above is loaded, not rebuilt): exit code 0,
+    every field > 0 and finite with each diagnostic of BENCH_INFO,
+    finite_share 1, no field failed or skipped, the launches a forward of
+    BENCH_LAUNCHES, mfu_pct and kernel_pct <= MFU_LIMIT. roofline_frac is
+    printed, not held: eager per-op bytes may be served by the L2 cache.
+    (b) bench_forwards: one forward of every field in this process, every
+    launch held to its plain version at the bench's own shapes and rigs.
+    Returns (b)'s launches."""
+    bench_subprocess()
+    return bench_forwards(dev)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -3713,10 +3816,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = port_bench.card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
@@ -3787,13 +3887,21 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s since the build began",
           flush=True)
 
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    bench_counts = phase16_bench(dev)
+    print(f"phase16 took {time.perf_counter() - t16:.1f} s of "
+          f"{time.perf_counter() - t0:.1f} s since the build began",
+          flush=True)
+
     # launches: each path's own, counted from 0 just before its run
     paths = {"mvsnet_serving": counts, "mvsnet_training": train_counts,
              "vis_serving": vis_counts, "vis_training": vis_train_counts,
              "cvp_serving": cvp_counts, "cvp_training": cvp_train_counts,
              "rect_serving": rect_counts, "reconstruction": recon_counts,
              "unsup_training": unsup_counts, "distributed": dist_counts,
-             "classic": classic_counts, "depthmap_eval": eval_counts}
+             "classic": classic_counts, "depthmap_eval": eval_counts,
+             "bench": bench_counts}
     for name, k in kernels.items():
         k["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         k["launches"] = sum(c[name] for c in paths.values())

@@ -211,4 +211,5 @@ def test_port_imports_neither_jax_nor_wildmvs():
             "wildmvs_torch.data.preprocess_megadepth",
             "wildmvs_torch.train.orbax_read", "wildmvs_torch.cpp",
             "wildmvs_torch.geometry.projective",
-            "wildmvs_torch.pipeline.metrics3d"} <= names
+            "wildmvs_torch.pipeline.metrics3d", "wildmvs_torch.bench",
+            "wildmvs_torch.utils.cost"} <= names

@@ -103,10 +103,19 @@ run, so two runs may differ in the last f32 bits.
 Each wrapper takes its plain PyTorch version only for tensors on the CPU.
 For CUDA tensors it launches its kernel or raises; it never falls back.
 `<wrapper>.launches` counts kernel launches (never plain calls).
+
+`warp_work`, `warp_backward_work`, `gwc_work` and `fused_work` count what
+one launch must do on its inputs (bytes in and out, operations from the
+live samples) and `bound` turns that into the least time at the H100's
+peaks: chip_smoke.py's kernel bounds read them. Inside `on_launch(hook)`
+each launch calls hook(kernel name, inputs, output), its inputs in the
+order of its plain version and of its `*_work` (utils/cost.CostCounter
+counts the launches' work by them).
 """
 from __future__ import annotations
 
 import contextlib
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -358,6 +367,119 @@ def fused_cost_volume_plain(ref, srcs, P, Q, s, temp=None,
 
 
 # ---------------------------------------------------------------------------
+# the work of a launch: bytes, operations and the bound they set
+# ---------------------------------------------------------------------------
+
+#: the H100 SXM's published peaks (NVIDIA's data sheet, at a 700 W limit):
+#: HBM3 bytes a second and f32 operations a second outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+
+
+class KernelWork(NamedTuple):
+    """What one launch must do on its inputs: `bytes` (each input read
+    once, the output written once), `operations` (f32, counted from the
+    live samples), `live_samples`, and the (h, w) of its source maps and
+    (H, W) of its reference grid."""
+    bytes: int
+    operations: int
+    live_samples: int
+    src_hw: tuple
+    grid_hw: tuple
+
+
+def live_samples(P, Q, s, h: int, w: int, scale=UNIT_SCALE,
+                 clamp=None) -> int:
+    """Bilinear samples that read the source (the data-dependent work), in
+    the sweep's convention (the liveness rule of `_taps`)."""
+    x, y = source_coords(*_project(P, Q, s), scale, clamp)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    live = (x0 >= -1) & (x0 <= w - 1) & (y0 >= -1) & (y0 <= h - 1)
+    return int(live.sum())
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(work: KernelWork):
+    """(bound_ms, bound_by) of a launch: the larger of its bytes' time at
+    HBM_BYTES_PER_S and its operations' at F32_FLOPS."""
+    t_bytes = work.bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = work.operations / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def warp_work(src, P, Q, s, scale=UNIT_SCALE, clamp=None) -> KernelWork:
+    """One `sweep_warp` launch: 8 operations a live sample and channel (4
+    taps, multiply and add), 20 a sample for its coordinates; writes the
+    bf16 volume."""
+    b, h, w, c = src.shape
+    H, W = P.shape[-2:]
+    n = b * s.shape[1] * H * W
+    live = live_samples(P, Q, s, h, w, scale, clamp)
+    return KernelWork(nbytes(src, P, Q, s) + n * c * 2, live * c * 8 + n * 20,
+                      live, (h, w), (H, W))
+
+
+def warp_backward_work(g, P, Q, s, src_hw, scale=UNIT_SCALE,
+                       clamp=None) -> KernelWork:
+    """One `sweep_warp_backward` launch: the warp's operations; reads g,
+    writes the f32 source gradient."""
+    b, D, H, W, c = g.shape
+    h, w = src_hw
+    live = live_samples(P, Q, s, h, w, scale, clamp)
+    return KernelWork(nbytes(g, P, Q, s) + b * h * w * c * 4,
+                      live * c * 8 + b * D * H * W * 20, live, (h, w),
+                      (H, W))
+
+
+def gwc_work(src, ref, P, Q, s, scale=UNIT_SCALE, clamp=None,
+             groups: int = GWC_GROUPS) -> KernelWork:
+    """One `sweep_gwc` launch: the warp's 8 operations a live sample and
+    channel plus the product and group sum (10); writes [.., groups]."""
+    b, h, w, c = src.shape
+    H, W = P.shape[-2:]
+    n = b * s.shape[1] * H * W
+    live = live_samples(P, Q, s, h, w, scale, clamp)
+    return KernelWork(nbytes(src, ref, P, Q, s) + n * groups * 2,
+                      live * c * 10 + n * 20, live, (h, w), (H, W))
+
+
+def fused_work(ref, srcs, P, Q, s, temp=None,
+               agg: str = "variance") -> KernelWork:
+    """One `fused_cost_volume` launch: each view's warp (8 a live sample
+    and channel, 20 a sample), the combine (3 a view and channel, 4 a
+    channel, the variance's: `temp` and `agg` do not change the count);
+    writes the bf16 volume."""
+    b, nv, h, w, c = srcs.shape
+    H, W = P.shape[-2:]
+    n = b * s.shape[1] * H * W
+    live = sum(live_samples(P[:, v], Q[:, v], s, h, w) for v in range(nv))
+    return KernelWork(nbytes(ref, srcs, P, Q, s) + n * c * 2,
+                      live * c * 8 + nv * n * 20 + n * c * (nv * 3 + 4),
+                      live, (h, w), (H, W))
+
+
+_launch_hook = None
+
+
+@contextlib.contextmanager
+def on_launch(hook):
+    """Within the block, each kernel launch calls hook(kernel name,
+    inputs, output) after it is queued: `inputs` are its arguments in the
+    order of its plain version (`sweep_warp_plain`, ...) and of its
+    `*_work`; `output` is what the plain version returns (the backward's
+    f32 accumulation). The previous hook is restored on exit."""
+    global _launch_hook
+    saved, _launch_hook = _launch_hook, hook
+    try:
+        yield
+    finally:
+        _launch_hook = saved
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
@@ -435,6 +557,8 @@ def _sweep_warp_forward(src, P, Q, s, scale, clamp) -> torch.Tensor:
                                stream)
     _build.check(rc, "wm_sweep_warp")
     sweep_warp.launches += 1
+    if _launch_hook is not None:
+        _launch_hook("sweep_warp", (src, P, Q, s, scale, clamp), out)
     return out
 
 
@@ -533,6 +657,9 @@ def sweep_warp_backward(g: torch.Tensor, P: torch.Tensor, Q: torch.Tensor,
             int(s.dim() == 4), _tile_rows(c), *conv, stream)
     _build.check(rc, "wm_sweep_warp_backward")
     sweep_warp_backward.launches += 1
+    if _launch_hook is not None:
+        _launch_hook("sweep_warp_backward",
+                     (g, P, Q, s, src_hw, scale, clamp), df)
     return df.to(dtype)
 
 
@@ -790,6 +917,9 @@ def sweep_gwc(src: torch.Tensor, ref: torch.Tensor, P: torch.Tensor,
                               stream)
     _build.check(rc, "wm_sweep_gwc")
     sweep_gwc.launches += 1
+    if _launch_hook is not None:
+        _launch_hook("sweep_gwc", (src, ref, P, Q, s, scale, clamp, groups),
+                     out)
     return out
 
 
@@ -847,6 +977,9 @@ def fused_cost_volume(ref: torch.Tensor, srcs: torch.Tensor, P: torch.Tensor,
             AGGREGATIONS.index(agg), *fused_plan(c, nv), stream)
     _build.check(rc, "wm_fused_cost_volume")
     fused_cost_volume.launches += 1
+    if _launch_hook is not None:
+        _launch_hook("fused_cost_volume", (ref, srcs, P, Q, s, temp, agg),
+                     out)
     return out
 
 
@@ -857,6 +990,14 @@ KERNELS = {"sweep_warp": sweep_warp,
            "sweep_warp_backward": sweep_warp_backward,
            "fused_cost_volume": fused_cost_volume,
            "sweep_gwc": sweep_gwc}
+#: each kernel's plain version and the count of its work, by kernel name;
+#: both take the inputs that an `on_launch` hook receives
+PLAIN = {"sweep_warp": sweep_warp_plain,
+         "sweep_warp_backward": sweep_warp_backward_plain,
+         "fused_cost_volume": fused_cost_volume_plain,
+         "sweep_gwc": sweep_gwc_plain}
+WORK = {"sweep_warp": warp_work, "sweep_warp_backward": warp_backward_work,
+        "fused_cost_volume": fused_work, "sweep_gwc": gwc_work}
 
 
 def reset_launch_counts() -> None:
