@@ -154,6 +154,17 @@ JAX or of the JAX package. Phases, each of which stops the run if it fails:
      launch held to its plain version on its own inputs under compare's
      limit: the bench's shapes and rigs (the 0.1 mm `scene` rig too), which
      phase 1's cases do not cover.
+ 17. the quality drive (`phase17_quality`, the path "e2e"): (a) `python
+     -m wildmvs_torch.tools.e2e_quality --epochs 40 --prob_threshold 0.05`
+     in a subprocess under PyTorch's default flags: MVSNet, Vis-MVSNet and
+     CVP-MVSNet trained by the port's CLI on the synthetic set (the JAX
+     recipes, f32), each logdir reconstructed through the four stages on
+     the held-out 64x96 5-view scene; the oracle, MVSNet and Vis rows held
+     to the JAX package's bounds (E2E_BOUNDS), CVP printed; no error row.
+     (b) The trained checkpoints in this process through load_network:
+     one bf16 eval forward each and one bf16 training step each at the
+     drive's shapes, every launch held to its plain version on its own
+     inputs.
 
 Phase 1 also holds sweep_warp_backward to its plain version ([D], [D,H,W]
 and the behind-camera rig) and times it against torch's
@@ -188,6 +199,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -202,7 +214,8 @@ from wildmvs_torch import _build
 from wildmvs_torch import bench as port_bench
 from wildmvs_torch import cpp as native
 from wildmvs_torch.data import loaders
-from wildmvs_torch.data.synthetic import (SyntheticMVSDataset, collate,
+from wildmvs_torch.data.synthetic import (SyntheticMVSDataset,
+                                          SyntheticSceneDataset, collate,
                                           render_rig_plane)
 from wildmvs_torch.dist.mesh import (collective_bytes, make_mesh,
                                      reset_collective_bytes, shard_batch,
@@ -228,6 +241,7 @@ from wildmvs_torch.pipeline.classic import classic_depthmap
 from wildmvs_torch.pipeline.depthmaps import get_mask_invalid, run_depthmaps
 from wildmvs_torch.pipeline.reconstruction import (load_network,
                                                    run_pipeline)
+from wildmvs_torch.tools import e2e_quality
 from wildmvs_torch.train import trainer as T
 from wildmvs_torch.train.checkpoint import save_checkpoint
 from wildmvs_torch.train.config import TrainConfig
@@ -3750,31 +3764,44 @@ def bench_subprocess() -> dict:
     return record
 
 
+def held_launches(phase: str, label: str, errs: dict):
+    """An `on_launch` hook that holds each launch to its plain version on
+    its own inputs under phase 1's limits (compare for the forward
+    kernels, the non-finite elements of both equal; the backward's f32
+    accumulation within 1e-4 of its scale) and keeps each kernel's
+    largest error in `errs`."""
+    def hook(name, inputs, out):
+        want = sk.PLAIN[name](*inputs)
+        torch.cuda.synchronize()
+        what = f"{label} {name} {tuple(out.shape)}"
+        if name == "sweep_warp_backward":
+            scale = max(want.abs().max().item(), 1e-6)
+            err = (out - want).abs().max().item()
+            print(f"{phase} {what}: f32 max_abs_err {err:.6g} limit "
+                  f"{1e-4 * scale:.6g} (scale {scale:.4g})", flush=True)
+            check(err <= 1e-4 * scale, f"{what}: {err} > {1e-4 * scale}")
+        else:
+            ok_g, ok_w = torch.isfinite(out), torch.isfinite(want)
+            check(torch.equal(ok_g, ok_w), f"{what}: kernel and plain "
+                  f"differ in their non-finite elements")
+            err = compare(what, torch.where(ok_g, out.float(), 0.0),
+                          torch.where(ok_w, want.float(), 0.0), phase=phase)
+        errs[name] = max(errs.get(name, 0.0), err)
+    return hook
+
+
 def bench_forwards(dev) -> dict:
     """One forward of each bench field in this process, each kernel
-    launch held to its plain version on its own inputs (compare's limit;
-    the non-finite elements of both equal), the depth finite. Returns the
-    launches of these forwards: the path "bench"."""
+    launch held to its plain version on its own inputs (held_launches),
+    the depth finite. Returns the launches of these forwards: the path
+    "bench"."""
     errs = {}
-
-    def hold(field):
-        def hook(name, inputs, out):
-            want = sk.PLAIN[name](*inputs)
-            torch.cuda.synchronize()
-            ok_g, ok_w = torch.isfinite(out), torch.isfinite(want)
-            label = f"{field.key} {name} {tuple(out.shape)}"
-            check(torch.equal(ok_g, ok_w), f"{label}: kernel and plain "
-                  f"differ in their non-finite elements")
-            err = compare(label, torch.where(ok_g, out.float(), 0.0),
-                          torch.where(ok_w, want.float(), 0.0),
-                          phase="phase16")
-            errs[name] = max(errs.get(name, 0.0), err)
-        return hook
 
     sk.reset_launch_counts()
     for field in port_bench.fields():
         model, args = port_bench.build(field, dev)
-        with torch.inference_mode(), sk.on_launch(hold(field)):
+        with torch.inference_mode(), \
+                sk.on_launch(held_launches("phase16", field.key, errs)):
             depth = model(*args, **field.forward)["depth"]
         check(bool(torch.isfinite(depth).all()), f"{field.key}: depth not "
               f"finite")
@@ -3805,6 +3832,154 @@ def phase16_bench(dev) -> dict:
     Returns (b)'s launches."""
     bench_subprocess()
     return bench_forwards(dev)
+
+
+# ---------------------------------------------------------------------------
+# The quality drive (phase 17)
+# ---------------------------------------------------------------------------
+
+#: phase 17: the quality drive as the JAX package's quality test runs its
+#: tool (tests/test_quality_validation.py:165-207): the JAX recipes for 40
+#: epochs, scored at the confidence gate 0.05 on the held-out 64x96 5-view
+#: scene (scene seed 0)
+E2E_EPOCHS = 40
+E2E_THRESHOLD = 0.05
+E2E_ARCHS = ("oracle", "mvsnet", "vis_mvsnet", "cvp_mvsnet")
+#: the JAX package's bounds (tests/test_quality_validation.py:196-207): the
+#: fused cloud's least points, the most stage-1 depth EPE (intervals) and
+#: chamfer accuracy (scene units; the oracle's strictly below). CVP is
+#: printed, not held: it does not converge on the 8 tiny training scenes
+#: (BASELINE.md:746-750)
+E2E_BOUNDS = {"oracle": dict(points=5000, acc=0.006),
+              "mvsnet": dict(points=1000, epe=7.5, acc=0.20),
+              "vis_mvsnet": dict(points=150, epe=11.5, acc=0.20)}
+E2E_TIMEOUT = 900                # seconds; the drive takes ~1-2 min
+E2E_DIR = Path(__file__).resolve().parent / "build" / "e2e"
+
+
+def phase17a_quality_drive() -> dict:
+    """`python -m wildmvs_torch.tools.e2e_quality` in a subprocess under
+    PyTorch's default flags (users train under them), the kernel library
+    built above, the three trainings at once on the card: exit code 0,
+    one row an architecture, none an error row, each held to E2E_BOUNDS.
+    Returns {"rows": {arch: row}, "drive_s": seconds}."""
+    shutil.rmtree(E2E_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "wildmvs_torch.tools.e2e_quality",
+         "--epochs", str(E2E_EPOCHS), "--prob_threshold",
+         str(E2E_THRESHOLD), "--archs", ",".join(E2E_ARCHS), "--device",
+         "cuda", "--workdir", str(E2E_DIR)],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=E2E_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        print(f"phase17 drive: {line}", flush=True)
+    rows = {}
+    for line in proc.stdout.splitlines():
+        with contextlib.suppress(json.JSONDecodeError):
+            row = json.loads(line)
+            if isinstance(row, dict) and "arch" in row:
+                rows[row["arch"]] = row
+                print(f"phase17 row {line}", flush=True)
+    check(proc.returncode == 0, f"the quality drive exited with "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    check(sorted(rows) == sorted(E2E_ARCHS), f"the drive gave rows for "
+          f"{sorted(rows)}, expected {sorted(E2E_ARCHS)}")
+    bad = {a: r["error"] for a, r in rows.items() if "error" in r}
+    check(not bad, f"the drive failed: {bad}")
+    for arch, bound in E2E_BOUNDS.items():
+        r = rows[arch]
+        ok = (r["num_points"] >= bound["points"] and r["acc"] is not None
+              and (r["acc"] < bound["acc"] if arch == "oracle"
+                   else r["acc"] <= bound["acc"])
+              and r.get("depth_epe_itv", 0.0) <= bound.get("epe", np.inf))
+        print(f"phase17 {arch}: {r['num_points']} points (>= "
+              f"{bound['points']}), EPE {r.get('depth_epe_itv')} (<= "
+              f"{bound.get('epe')}), acc {r['acc']} (<= {bound['acc']}), "
+              f"comp {r['comp']}, train_s {r.get('train_s')}: "
+              f"{'held' if ok else 'MISSED'}", flush=True)
+        check(ok, f"phase17 {arch}: {r} outside {bound}")
+    print(f"phase17a drive took {seconds:.1f} s (train_s "
+          f"{ {a: r.get('train_s') for a, r in rows.items()} })",
+          flush=True)
+    return {"rows": rows, "drive_s": seconds}
+
+
+def phase17b_trained_nets(dev):
+    """The networks phase 17a trained, in this process: each checkpoint
+    through load_network (the pipeline's bf16 eval: fused for MVSNet, gwc
+    for Vis, rect canvases into fused for CVP), one eval forward on the
+    held-out scene's first view, and one training step of the drive's
+    recipe at its shapes (64x96 N3) from the trained weights with bf16
+    compute (the drive trains in f32, which takes the exact gather in
+    both packages: the kernels are bf16, as the Pallas kernels are), every
+    kernel launch held to its plain version on its own inputs
+    (held_launches). The card's first launches below 64x80. Returns (the
+    path's launches, {kernel: largest error})."""
+    scene = SyntheticSceneDataset(**e2e_quality.SCENE)
+    sample = scene[0]
+    train_batch = T.batch_to_device(collate([SyntheticMVSDataset(
+        num_samples=8, num_views=3, seed=1)[0]]), dev)
+    errs = {}
+    sk.reset_launch_counts()
+    for arch in E2E_ARCHS[1:]:
+        logdir = E2E_DIR / f"train_{arch}"
+        model, _, nscale = load_network(logdir, None, sample, "synthetic",
+                                        device=dev)
+        extra = {} if nscale is None else {"nscale": nscale}
+        args = [torch.as_tensor(np.asarray(sample[k], np.float32),
+                                device=dev)[None]
+                for k in ("imgs", "K", "R", "t", "depth_min", "depth_max")]
+        n0 = sk.launch_counts()
+        with torch.inference_mode(), sk.on_launch(
+                held_launches("phase17b", f"{arch} eval", errs)):
+            out = model(*args, **extra)
+        check(bool(torch.isfinite(out["depth"]).all()),
+              f"phase17b {arch}: eval depth not finite")
+        evals = {k: v - n0[k] for k, v in sk.launch_counts().items()}
+        del model
+        flags = e2e_quality.TRAIN_ARGS[arch]
+        recipe = dict(zip(flags[::2], flags[1::2]))
+        cfg = TrainConfig(architecture=arch, dataset="synthetic",
+                          num_depth=int(recipe.get("--num_depth", 192)),
+                          lr=float(recipe["--lr"]),
+                          train_dtype="bfloat16")
+        state = T.create_train_state(cfg, dev)
+        sd = torch.load(sorted(logdir.glob("model_*.ckpt"))[-1],
+                        map_location=dev, weights_only=True)["model"]
+        state.model.load_state_dict(sd)
+        n0 = sk.launch_counts()
+        with sk.on_launch(held_launches("phase17b", f"{arch} train",
+                                        errs)):
+            state, m = T.train_step(state, train_batch, cfg)
+        loss = m["train_loss"].item()
+        steps = {k: v - n0[k] for k, v in sk.launch_counts().items()}
+        check(np.isfinite(loss) and steps["sweep_warp"] > 0
+              and steps["sweep_warp"] == steps["sweep_warp_backward"],
+              f"phase17b {arch}: the training step launched {steps}, "
+              f"loss {loss}")
+        print(f"phase17b {arch}: eval launches {evals}; train step loss "
+              f"{loss:.4f}, launches {steps}", flush=True)
+        del state
+    counts = sk.launch_counts()
+    check(all(counts[k] > 0 for k in sk.KERNELS), f"phase17b launched "
+          f"{counts}: a kernel of the e2e path never ran")
+    print(f"phase17b launches {json.dumps(counts)}, max_abs_err by kernel "
+          f"{errs}", flush=True)
+    return counts, errs
+
+
+def phase17_quality(dev):
+    """Phase 17: the drive (a) and its trained networks in this process
+    (b); the path "e2e" is (b)'s launches."""
+    t0 = time.perf_counter()
+    drive = phase17a_quality_drive()
+    counts, errs = phase17b_trained_nets(dev)
+    drive["phase_s"] = time.perf_counter() - t0
+    drive["max_abs_err"] = errs
+    print(f"phase17 took {drive['phase_s']:.1f} s", flush=True)
+    return counts, drive
 
 
 def main() -> int:
@@ -3893,6 +4068,10 @@ def main() -> int:
     print(f"phase16 took {time.perf_counter() - t16:.1f} s of "
           f"{time.perf_counter() - t0:.1f} s since the build began",
           flush=True)
+    torch.cuda.empty_cache()
+    e2e_counts, quality = phase17_quality(dev)
+    print(f"phase17 ended {time.perf_counter() - t0:.1f} s after the build "
+          f"began", flush=True)
 
     # launches: each path's own, counted from 0 just before its run
     paths = {"mvsnet_serving": counts, "mvsnet_training": train_counts,
@@ -3901,7 +4080,7 @@ def main() -> int:
              "rect_serving": rect_counts, "reconstruction": recon_counts,
              "unsup_training": unsup_counts, "distributed": dist_counts,
              "classic": classic_counts, "depthmap_eval": eval_counts,
-             "bench": bench_counts}
+             "bench": bench_counts, "e2e": e2e_counts}
     for name, k in kernels.items():
         k["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         k["launches"] = sum(c[name] for c in paths.values())
@@ -3923,7 +4102,8 @@ def main() -> int:
                       "unsup_training": unsup_training,
                       "distributed": distributed,
                       "classic_and_tools": tools,
-                      "native_host": native_host, "card": card}),
+                      "native_host": native_host, "quality": quality,
+                      "card": card}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -173,6 +173,11 @@ def test_port_imports_neither_jax_nor_wildmvs():
         "from wildmvs_torch.models import build_model\n"
         "assert wildmvs_torch.Predictor is Predictor\n"
         "assert wildmvs_torch.build_model is build_model\n"
+        "from wildmvs_torch.tools import e2e_quality, fusion_sensitivity\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'flax', 'wildmvs')\n"
+        "       and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    wildmvs_torch.__path__, 'wildmvs_torch.')]\n"
         "for name in names:\n"
@@ -212,4 +217,6 @@ def test_port_imports_neither_jax_nor_wildmvs():
             "wildmvs_torch.train.orbax_read", "wildmvs_torch.cpp",
             "wildmvs_torch.geometry.projective",
             "wildmvs_torch.pipeline.metrics3d", "wildmvs_torch.bench",
-            "wildmvs_torch.utils.cost"} <= names
+            "wildmvs_torch.utils.cost", "wildmvs_torch.tools",
+            "wildmvs_torch.tools.e2e_quality",
+            "wildmvs_torch.tools.fusion_sensitivity"} <= names

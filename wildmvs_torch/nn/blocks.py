@@ -177,10 +177,46 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     for m in module.modules():
         if isinstance(m, CONVS):
             w = m.weight
-            deconv = isinstance(m, (nn.ConvTranspose2d, nn.ConvTranspose3d))
-            fan_in = w.shape[0] * w[0, 0].numel() if deconv else w[0].numel()
             w.copy_(torch.randn(w.shape, generator=generator)
-                    * (2.0 / fan_in) ** 0.5)
+                    * (2.0 / conv_fan_in(m)) ** 0.5)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+            m.reset_parameters()
+    return module
+
+
+#: flax's truncated normal: the std of a standard normal cut at +-2
+#: (jax.nn.initializers.variance_scaling divides the scale by it)
+TRUNC_STD = 0.87962566103423978
+
+
+def conv_fan_in(conv: nn.Module) -> int:
+    """A conv's fan-in as flax reckons it for the same layer: the kernel's
+    input channels times its taps (a transposed conv's weight is
+    [in, out, *k], a conv's [out, in / groups, *k])."""
+    w = conv.weight
+    deconv = isinstance(conv, (nn.ConvTranspose2d, nn.ConvTranspose3d))
+    return w.shape[0] * w[0, 0].numel() if deconv else w[0].numel()
+
+
+@torch.no_grad()
+def lecun_normal_init(module: nn.Module,
+                      generator: torch.Generator) -> nn.Module:
+    """Fresh training weights from the JAX package's distribution: every
+    conv and transposed-conv kernel drawn as flax's `lecun_normal` draws
+    it (a normal of scale sqrt(1 / fan_in) / TRUNC_STD cut at two of those
+    scales, so its std is sqrt(1 / fan_in)), zero biases, identity
+    BatchNorm. Other parameters (MVSNet-s's temperature, ones in both
+    packages) keep what the constructor gave them. Values are drawn on
+    the CPU from `generator`."""
+    for m in module.modules():
+        if isinstance(m, CONVS):
+            scale = (1.0 / conv_fan_in(m)) ** 0.5 / TRUNC_STD
+            w = torch.empty(m.weight.shape)
+            nn.init.trunc_normal_(w, 0.0, scale, -2.0 * scale, 2.0 * scale,
+                                  generator=generator)
+            m.weight.copy_(w)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.modules.batchnorm._BatchNorm):

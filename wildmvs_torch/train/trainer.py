@@ -80,7 +80,8 @@ from ..losses.supervised import (bayesian_loss, downsample_gt,
 from ..dist.mesh import (Mesh, all_reduce, gather_slabs, my_slab,
                          sum_gradients, use_mesh)
 from ..models import build_model
-from ..nn.blocks import frozen_running_stats, synced_batch_norm
+from ..nn.blocks import (frozen_running_stats, lecun_normal_init,
+                         synced_batch_norm)
 from .config import TrainConfig
 from .metrics import depth_metrics
 
@@ -131,9 +132,18 @@ def make_optimizer(config: TrainConfig,
 def create_train_state(config: TrainConfig, device=None,
                        model: torch.nn.Module | None = None) -> TrainState:
     """A fresh TrainState; `model` (already on its device) replaces the
-    seeded one, e.g. weights carried from the JAX package."""
+    seeded one, e.g. weights carried from the JAX package.
+
+    A fresh model trains from the JAX trainer's distribution: its kernels
+    are drawn again as flax's `lecun_normal` draws them, from a generator
+    seeded with `config.seed` (nn/blocks.lecun_normal_init). The
+    constructor's He-normal weights are for seeded random-weight serving,
+    where eval-mode BatchNorm at its initial statistics would shrink
+    lecun-scale activations by sqrt(2) a layer; a trainer normalizes by
+    the batch and has no such reason."""
     if model is None:
         model = create_model(config, resolve_device(device))
+        lecun_normal_init(model, torch.Generator().manual_seed(config.seed))
     return TrainState(model=model, optimizer=make_optimizer(config, model))
 
 
