@@ -54,7 +54,8 @@ package so each counterpart is easy to find:
                            groups, use_mesh, slab gathers, gradient sums
   dist/view_parallel.py    view-parallel occlusion-masked training
   utils/monitor.py         MeterSet, JSON-lines Logger, StageTimer,
-                           profiler_trace
+                           profiler_trace, span (a trace range while a
+                           profiler records, named wildmvs_torch.<part>)
   entry.py                 entry() and dryrun_multichip(n)
   infer.py                 Predictor
   pipeline/depthmaps.py    run_depthmaps, eval_model_kwargs

@@ -30,6 +30,9 @@ from .models import build_model
 from .pipeline.depthmaps import eval_model_kwargs
 from .train.checkpoint import resolve_checkpoint
 from .train.jax_import import load_weights
+from .utils.monitor import span
+
+SPAN = "wildmvs_torch.Predictor"
 
 
 class Predictor:
@@ -97,7 +100,12 @@ class Predictor:
         return imgs[..., :nh, :nw, :]
 
     def _tensor(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.array(x, np.float32), device=self.device)
+        """`x` copied to a new f32 host array (span `.prepare`), then
+        uploaded (span `.upload`)."""
+        with span(f"{SPAN}.prepare"):
+            a = np.array(x, np.float32)
+        with span(f"{SPAN}.upload"):
+            return torch.as_tensor(a, device=self.device)
 
     def __call__(self, imgs, K, R, t, depth_min, depth_max,
                  reference_frame: int = 0) -> dict:
@@ -106,46 +114,57 @@ class Predictor:
         (each cropped on its own); K/R [., N, 3, 3], t [., N, 3, 1],
         depth_min/max [., N] or scalars. Returns numpy f32 {depth,
         confidence} (vis_mvsnet: one confidence per stage, [3, h, w]),
-        without the batch axis when the input had none."""
-        ragged = (isinstance(imgs, (list, tuple))
-                  and len({tuple(np.asarray(v).shape[-3:-1])
-                           for v in imgs}) > 1)
-        if ragged:
-            views = [np.asarray(v, np.float32) for v in imgs]
-            batched = views[0].ndim == 4
-            views = [self._crop32(v if batched else v[None]) for v in views]
-            n, nb = len(views), views[0].shape[0]
-            x = [self._tensor(v) for v in views]
-        else:
-            if isinstance(imgs, (list, tuple)):
-                imgs = np.stack([np.asarray(v) for v in imgs],
-                                axis=1 if np.asarray(imgs[0]).ndim == 4
-                                else 0)
-            imgs = np.asarray(imgs, np.float32)
-            batched = imgs.ndim == 5
-            imgs = self._crop32(imgs if batched else imgs[None])
-            nb, n = imgs.shape[:2]
-            x = self._tensor(imgs)
+        without the batch axis when the input had none.
 
-        def prep(a):                     # [., N, r, c] -> [B, N, r, c]
-            a = np.asarray(a, np.float32)
-            while a.ndim < 4:
-                a = a[None]
-            return self._tensor(a)
+        Under a profiler a call records the span
+        `wildmvs_torch.Predictor.request` and, inside it, `.prepare` (the
+        views' stack and crop, then each f32 copy made for an upload),
+        `.upload` (each copy's upload), `.forward` and `.fetch`."""
+        with span(f"{SPAN}.request"):
+            with span(f"{SPAN}.prepare"):
+                ragged = (isinstance(imgs, (list, tuple))
+                          and len({tuple(np.asarray(v).shape[-3:-1])
+                                   for v in imgs}) > 1)
+                if ragged:
+                    views = [np.asarray(v, np.float32) for v in imgs]
+                    batched = views[0].ndim == 4
+                    views = [self._crop32(v if batched else v[None])
+                             for v in views]
+                    n, nb = len(views), views[0].shape[0]
+                else:
+                    if isinstance(imgs, (list, tuple)):
+                        imgs = np.stack([np.asarray(v) for v in imgs],
+                                        axis=1 if np.asarray(imgs[0]).ndim
+                                        == 4 else 0)
+                    imgs = np.asarray(imgs, np.float32)
+                    batched = imgs.ndim == 5
+                    imgs = self._crop32(imgs if batched else imgs[None])
+                    nb, n = imgs.shape[:2]
+            x = ([self._tensor(v) for v in views] if ragged
+                 else self._tensor(imgs))
 
-        def prep_range(a):
-            a = np.asarray(a, np.float32)
-            if a.ndim < 2:
-                a = np.broadcast_to(a, (nb, n))
-            return self._tensor(a)
+            def prep(a):                 # [., N, r, c] -> [B, N, r, c]
+                a = np.asarray(a, np.float32)
+                while a.ndim < 4:
+                    a = a[None]
+                return self._tensor(a)
 
-        with torch.inference_mode(), use_mesh(self.mesh):
-            out = self.model(x, prep(K), prep(R), prep(t),
-                             prep_range(depth_min), prep_range(depth_max),
-                             reference_frame=reference_frame,
-                             **self.forward_kwargs)
-            depth = out["depth"].float().cpu().numpy()
-            conf = out["photometric_confidence"].float().cpu().numpy()
+            def prep_range(a):
+                a = np.asarray(a, np.float32)
+                if a.ndim < 2:
+                    a = np.broadcast_to(a, (nb, n))
+                return self._tensor(a)
+
+            with torch.inference_mode(), use_mesh(self.mesh):
+                cams = [prep(K), prep(R), prep(t), prep_range(depth_min),
+                        prep_range(depth_max)]
+                with span(f"{SPAN}.forward"):
+                    out = self.model(x, *cams,
+                                     reference_frame=reference_frame,
+                                     **self.forward_kwargs)
+                with span(f"{SPAN}.fetch"):
+                    depth = out["depth"].float().cpu().numpy()
+                    conf = out["photometric_confidence"].float().cpu().numpy()
         if not batched:
             depth, conf = depth[0], conf[0]
         return {"depth": depth, "confidence": conf}

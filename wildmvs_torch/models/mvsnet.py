@@ -54,6 +54,10 @@ under torch.autocast, confined to the two networks. BatchNorm parameters
 and statistics stay f32 and return the compute dtype; geometry
 (projections, hypotheses, sampling coordinates) stays f32. The softmax and
 regression run in f32 (the JAX package takes its softmax in bf16).
+
+Trace spans (utils/monitor.span, recorded only under a profiler):
+`wildmvs_torch.mvsnet.features`, `.sweep` (the cost volume),
+`.regularize` (CostRegNet) and `.regress` (softmax, depth, confidence).
 """
 from __future__ import annotations
 
@@ -73,9 +77,11 @@ from ..ops.sweep_kernels import mvsnet_planes, sweep_warp
 from ..ops.volumes import (depth_regression, photometric_confidence,
                            softmax_depth, softmin_cost_volume,
                            variance_cost_volume)
+from ..utils.monitor import span
 from .api import register_model, view_list
 
 SWEEP_METHODS = ("auto", "gather", "warp", "fused", "rect")
+SPAN = "wildmvs_torch.mvsnet"
 
 
 def compute_in(dtype: torch.dtype, weight: torch.Tensor):
@@ -275,19 +281,22 @@ class MVSNet(nn.Module):
         depth_values = (depth_min.float()[..., None]
                         + interval[..., None] * steps)       # [B, N, D]
 
-        if ragged or (self.training and not self.batched_bn):
-            # per-view calls: train-mode BatchNorm statistics per view,
-            # running statistics updated once per view in view order
-            feats_l = [self.feature(v) for v in views]
-        else:
-            stacked = imgs if torch.is_tensor(imgs) else torch.stack(views, 1)
-            h, w = stacked.shape[2:4]
-            feats = self.feature(stacked.reshape(b * n, h, w, 3))
-            feats = feats.reshape((b, n) + feats.shape[1:])
-            feats_l = [feats[:, i] for i in range(n)]
-        if self.aggregation.startswith("norm"):
-            feats_l = [f / torch.linalg.vector_norm(
-                f, dim=-1, keepdim=True).clamp_min(1e-12) for f in feats_l]
+        with span(f"{SPAN}.features"):
+            if ragged or (self.training and not self.batched_bn):
+                # per-view calls: train-mode BatchNorm statistics per view,
+                # running statistics updated once per view in view order
+                feats_l = [self.feature(v) for v in views]
+            else:
+                stacked = (imgs if torch.is_tensor(imgs)
+                           else torch.stack(views, 1))
+                h, w = stacked.shape[2:4]
+                feats = self.feature(stacked.reshape(b * n, h, w, 3))
+                feats = feats.reshape((b, n) + feats.shape[1:])
+                feats_l = [feats[:, i] for i in range(n)]
+            if self.aggregation.startswith("norm"):
+                feats_l = [f / torch.linalg.vector_norm(
+                    f, dim=-1, keepdim=True).clamp_min(1e-12)
+                    for f in feats_l]
 
         src_idx = [i for i in range(n) if i != reference_frame]
         ref_feature = feats_l[reference_frame]
@@ -300,17 +309,21 @@ class MVSNet(nn.Module):
         if slab is not None:
             sweep_depths = ref_depths[:, slab.lo:slab.hi]
             method = "fused" if method == "rect" else method
-        cost_volume = sweep_cost_volume(
-            ref_feature, [feats_l[i] for i in src_idx],
-            [proj[:, i] for i in src_idx], proj[:, reference_frame],
-            sweep_depths, method, self.agg,
-            self.temp if self.agg == "softmin" else None)
+        with span(f"{SPAN}.sweep"):
+            cost_volume = sweep_cost_volume(
+                ref_feature, [feats_l[i] for i in src_idx],
+                [proj[:, i] for i in src_idx], proj[:, reference_frame],
+                sweep_depths, method, self.agg,
+                self.temp if self.agg == "softmin" else None)
         with depth_partitioned(self.cost_regularization, hyp,
                                self.num_depth):
-            cost_reg = self.cost_regularization(cost_volume)[..., 0]
-        prob_volume = softmax_depth(cost_reg.float(), slab)  # [B, D, H, W]
-        depth = depth_regression(prob_volume, ref_depths, slab)
-        confidence = photometric_confidence(prob_volume.detach(), slab)
+            with span(f"{SPAN}.regularize"):
+                cost_reg = self.cost_regularization(cost_volume)[..., 0]
+        with span(f"{SPAN}.regress"):
+            # [B, D, H, W]
+            prob_volume = softmax_depth(cost_reg.float(), slab)
+            depth = depth_regression(prob_volume, ref_depths, slab)
+            confidence = photometric_confidence(prob_volume.detach(), slab)
         return {
             "depth": depth,
             "depth_est_list": [depth],

@@ -89,6 +89,12 @@ Precision: `dtype` is the networks' compute dtype, `param_dtype` (default
 autocast is confined to the networks, BatchNorm stays f32, geometry is
 f32, and the correlation sums, softmaxes, entropies, fusion and depths are
 f32 (the JAX package keeps them in the compute dtype).
+
+Trace spans (utils/monitor.span, recorded only under a profiler):
+`wildmvs_torch.vis_mvsnet.features` and, per stage k,
+`wildmvs_torch.vis_mvsnet.stage<k>.sweep` (a pair's correlation volume),
+`.regularize` (every call of Reg, RegPair and RegFuse, nothing else),
+`.fuse` (the pair fusion) and `.regress` (the stage's soft-argmin).
 """
 from __future__ import annotations
 
@@ -107,8 +113,11 @@ from ..ops.plane_sweep import homography_sweep_warp
 from ..ops.rect_sweep import exact_gwc_volume, rect_gwc_volume
 from ..ops.sweep_kernels import GWC_GROUPS, sweep_warp, vis_planes, vis_svals
 from ..ops.volumes import entropy, groupwise_correlation, soft_argmin
+from ..utils.monitor import span
 from .api import register_model, view_list
 from .mvsnet import compute_in
+
+SPAN = "wildmvs_torch.vis_mvsnet"
 
 SWEEP_METHODS = ("auto", "gather", "gwc", "warp", "rect")
 FUSION_MODES = ("soft", "hard", "average", "uwta", "maxpool")
@@ -219,11 +228,14 @@ class SingleStage(nn.Module):
     model_cas.py:166-420; the JAX package's SingleStage)."""
 
     def __init__(self, mode: str = "soft", dtype=torch.float32,
-                 view_axis: str | None = None, hyp_axis: str | None = None):
+                 view_axis: str | None = None, hyp_axis: str | None = None,
+                 name: str = "stage"):
         super().__init__()
         if mode not in FUSION_MODES:
             raise NotImplementedError(f"fusion mode: {mode}")
         self.mode = mode
+        #: prefix of the stage's trace spans (utils/monitor.span)
+        self.span = f"{SPAN}.{name}"
         self.view_axis = view_axis
         self.hyp_axis = hyp_axis
         self.reg = Reg(dtype)
@@ -236,8 +248,10 @@ class SingleStage(nn.Module):
         """correlation volume -> (reg volume, pair depth, uncertainty); over
         an active `hyp` axis the volumes are this rank's slabs of the
         depth_num hypotheses, the score gathered whole."""
-        interm = self.reg(cost)                           # [B, D, H, W, 8]
-        score = gather_slabs(self.reg_pair(interm)[..., 0].float(), hyp, 1,
+        with span(f"{self.span}.regularize"):
+            interm = self.reg(cost)                       # [B, D, H, W, 8]
+            pair_score = self.reg_pair(interm)
+        score = gather_slabs(pair_score[..., 0].float(), hyp, 1,
                              depth_num)                   # [B, D, H, W]
         prob, est_class = soft_argmin(score)
         est_depth = est_class * depth_interval[:, 0] + depth_start[:, 0]
@@ -273,8 +287,10 @@ class SingleStage(nn.Module):
             # stacked pairs); elsewhere the exact kernel path
             method = "gwc"
         if method == "rect":
-            costs = rect_gwc_volume(srcs_feat, ref_feat, K, R, t, depth_num,
-                                    depth_start, depth_interval, (h, w))
+            with span(f"{self.span}.sweep"):
+                costs = rect_gwc_volume(srcs_feat, ref_feat, K, R, t,
+                                        depth_num, depth_start,
+                                        depth_interval, (h, w))
 
         def cost_of(i):
             src = srcs_feat[i]
@@ -308,22 +324,32 @@ class SingleStage(nn.Module):
             for net in (self.reg, self.reg_pair, self.reg_fuse):
                 partitioned.enter_context(depth_partitioned(net, hyp,
                                                             depth_num))
-            pairs = [self._tail(cost_of(i), depth_start, depth_interval,
-                                hyp, depth_num) for i in mine]
-            if view is not None:
-                fused = self._fuse_stacked_sharded(pairs, view, mine.start,
-                                                   n_src)
-                ests, uncs = (gather_slabs(torch.stack([p[j] for p in pairs]),
-                                           view, 0, n_src) for j in (1, 2))
-                pair_results = [(ests[i], (uncs[i],)) for i in range(n_src)]
-            else:
-                pair_results = [(est, (unc,)) for _, est, unc in pairs]
-                fused = (self._fuse_stacked(pairs) if stacked
-                         else self._fuse_sequential(pairs))
-            score = gather_slabs(self.reg_fuse(fused)[..., 0].float(), hyp,
-                                 1, depth_num)
-        _, est_class, prob_map = soft_argmin(score, window=2)
-        est_depth = est_class * depth_interval[:, 0] + depth_start[:, 0]
+            pairs = []
+            for i in mine:
+                with span(f"{self.span}.sweep"):
+                    cost = cost_of(i)
+                pairs.append(self._tail(cost, depth_start, depth_interval,
+                                        hyp, depth_num))
+            with span(f"{self.span}.fuse"):
+                if view is not None:
+                    fused = self._fuse_stacked_sharded(pairs, view,
+                                                       mine.start, n_src)
+                    ests, uncs = (gather_slabs(
+                        torch.stack([p[j] for p in pairs]), view, 0, n_src)
+                        for j in (1, 2))
+                    pair_results = [(ests[i], (uncs[i],))
+                                    for i in range(n_src)]
+                else:
+                    pair_results = [(est, (unc,)) for _, est, unc in pairs]
+                    fused = (self._fuse_stacked(pairs) if stacked
+                             else self._fuse_sequential(pairs))
+            with span(f"{self.span}.regularize"):
+                fused_score = self.reg_fuse(fused)
+            score = gather_slabs(fused_score[..., 0].float(), hyp, 1,
+                                 depth_num)
+        with span(f"{self.span}.regress"):
+            _, est_class, prob_map = soft_argmin(score, window=2)
+            est_depth = est_class * depth_interval[:, 0] + depth_start[:, 0]
         return est_depth, prob_map, pair_results
 
     def _fuse_stacked(self, pairs):
@@ -451,9 +477,9 @@ class VisMVSNet(nn.Module):
         self.view_axis = view_axis
         self.hyp_axis = hyp_axis
         self.feat_ext = FeatExt(dtype)
-        self.stage1 = SingleStage(mode, dtype, view_axis, hyp_axis)
-        self.stage2 = SingleStage(mode, dtype, view_axis, hyp_axis)
-        self.stage3 = SingleStage(mode, dtype, view_axis, hyp_axis)
+        self.stage1 = SingleStage(mode, dtype, view_axis, hyp_axis, "stage1")
+        self.stage2 = SingleStage(mode, dtype, view_axis, hyp_axis, "stage2")
+        self.stage3 = SingleStage(mode, dtype, view_axis, hyp_axis, "stage3")
         init_weights(self, torch.Generator().manual_seed(seed))
         cast_convs(self, dtype if param_dtype is None else param_dtype)
 
@@ -488,17 +514,20 @@ class VisMVSNet(nn.Module):
         d_start0 = depth_min[:, ref].float().reshape(b, 1, 1, 1)
         d_interval = depth_interval.reshape(b, 1, 1, 1)
 
-        if ragged or (self.training and not self.batched_bn):
-            # per-view calls: train-mode BatchNorm statistics per view,
-            # updated in view order (reference first)
-            per_view = {i: self.feat_ext(views[i]) for i in order}
-            feats = [[per_view[i][lvl] for i in order] for lvl in range(3)]
-        else:
-            stacked = imgs if torch.is_tensor(imgs) else torch.stack(views, 1)
-            h, w, c = stacked.shape[2:]
-            packs = self.feat_ext(stacked.reshape(b * n, h, w, c))
-            feats = [[f.reshape((b, n) + f.shape[1:])[:, i] for i in order]
-                     for f in packs]
+        with span(f"{SPAN}.features"):
+            if ragged or (self.training and not self.batched_bn):
+                # per-view calls: train-mode BatchNorm statistics per view,
+                # updated in view order (reference first)
+                per_view = {i: self.feat_ext(views[i]) for i in order}
+                feats = [[per_view[i][lvl] for i in order]
+                         for lvl in range(3)]
+            else:
+                stacked = (imgs if torch.is_tensor(imgs)
+                           else torch.stack(views, 1))
+                h, w, c = stacked.shape[2:]
+                packs = self.feat_ext(stacked.reshape(b * n, h, w, c))
+                feats = [[f.reshape((b, n) + f.shape[1:])[:, i]
+                          for i in order] for f in packs]
         cams = {k: v[:, order] for k, v in (("K", K), ("R", R), ("t", t))}
         method = self.resolve_sweep(feats[0][0].dtype, feats[0][0].device)
 

@@ -82,8 +82,11 @@ from ..dist.mesh import (Mesh, all_reduce, gather_slabs, my_slab,
 from ..models import build_model
 from ..nn.blocks import (frozen_running_stats, lecun_normal_init,
                          synced_batch_norm)
+from ..utils.monitor import span
 from .config import TrainConfig
 from .metrics import depth_metrics
+
+SPAN = "wildmvs_torch.train_step"
 
 ARCHITECTURES = ("mvsnet", "mvsnet-s", "vis_mvsnet", "cvp_mvsnet")
 #: vis_mvsnet's test-time sweep (reference models/trainer.py:290-296),
@@ -158,8 +161,9 @@ def set_epoch_lr(state: TrainState, config: TrainConfig,
 def batch_to_device(batch: dict, device) -> dict:
     """A collated numpy batch -> f32 tensors on `device` (the file names
     stay behind)."""
-    return {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
-            for k, v in batch.items() if k != "filename"}
+    with span("wildmvs_torch.batch_to_device"):
+        return {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+                for k, v in batch.items() if k != "filename"}
 
 
 def forward_args(batch: dict, config: TrainConfig):
@@ -372,7 +376,18 @@ def train_step(state: TrainState, batch: dict, config: TrainConfig,
         data rank normalizes and takes the loss over its own rows, and
         the gradient and loss are the mean over the ranks (DDP's). The
         running statistics kept are reference view 0's, averaged over
-        "data". With data 1 it is the single-program step."""
+        "data". With data 1 it is the single-program step.
+
+    Under a profiler the step records the span `wildmvs_torch.train_step`
+    and, inside it, `.forward`, `.loss` (with occ_masking the views'
+    forwards and losses are one `.forward`), `.backward` (with the
+    gradient sum over the ranks) and `.optimizer` (Adam's step)."""
+    with span(SPAN):
+        return _train_step(state, batch, config, mesh)
+
+
+def _train_step(state: TrainState, batch: dict, config: TrainConfig,
+                mesh: Mesh | None):
     model = state.model
     model.train()
     state.optimizer.zero_grad(set_to_none=True)
@@ -388,15 +403,21 @@ def train_step(state: TrainState, batch: dict, config: TrainConfig,
         data, copies = mesh.axis("data"), mesh.size // mesh.shape["data"]
     with use_mesh(mesh), synced_batch_norm(model, data):
         if _occ_masked(config):
-            loss, out = _all_views_loss(model, batch, config, view)
+            with span(f"{SPAN}.forward"):
+                loss, out = _all_views_loss(model, batch, config, view)
         else:
-            out = forward(model, forward_args(batch, config), 0, config)
-            loss = loss_from_outputs(out, batch, config, 0, data_axis=data)
-        (loss / copies).backward()
-    if mesh is not None and mesh.size > 1:
-        sum_gradients(model, mesh.axis("all"))
-        loss = all_reduce(loss.detach(), mesh.axis("all")) / copies
-    state.optimizer.step()
+            with span(f"{SPAN}.forward"):
+                out = forward(model, forward_args(batch, config), 0, config)
+            with span(f"{SPAN}.loss"):
+                loss = loss_from_outputs(out, batch, config, 0,
+                                         data_axis=data)
+        with span(f"{SPAN}.backward"):
+            (loss / copies).backward()
+            if mesh is not None and mesh.size > 1:
+                sum_gradients(model, mesh.axis("all"))
+                loss = all_reduce(loss.detach(), mesh.axis("all")) / copies
+    with span(f"{SPAN}.optimizer"):
+        state.optimizer.step()
     if view is not None:
         _share_running_stats(model, mesh)
     state.step += 1
