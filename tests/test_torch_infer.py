@@ -3,6 +3,7 @@ package's, on the CPU, plus the port's isolation from JAX."""
 import os
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -15,7 +16,7 @@ from wildmvs.infer import Predictor as JaxPredictor
 from wildmvs.models.mvsnet import MVSNet as JaxMVSNet
 from wildmvs.pipeline.depthmaps import get_mask_invalid as jax_mask_invalid
 from wildmvs.train.checkpoint import save_params_npz
-from wildmvs_torch.infer import Predictor
+from wildmvs_torch.infer import Predictor, _stage
 from wildmvs_torch.models import build_model
 from wildmvs_torch.pipeline.depthmaps import (eval_model_kwargs,
                                               get_mask_invalid, run_depthmaps)
@@ -92,6 +93,170 @@ def test_predictor_ragged_views(npz_checkpoint):
     out = pred(views, K, R, t, dmin, dmax)
     assert out["depth"].shape == (16, 24)
     assert np.isfinite(out["depth"]).all()
+
+
+def parent_inputs(imgs, K, R, t, dmin, dmax):
+    """A request's model inputs as Predictor made them before it staged:
+    views stacked, cast, cropped, copied to a new f32 array each, then
+    `torch.as_tensor`."""
+    def crop(a):
+        h, w = a.shape[-3:-1]
+        return a[..., :h // 32 * 32, :w // 32 * 32, :]
+
+    def tensor(a):
+        return torch.as_tensor(np.array(a, np.float32))
+
+    ragged = (isinstance(imgs, (list, tuple))
+              and len({tuple(np.asarray(v).shape[-3:-1]) for v in imgs}) > 1)
+    if ragged:
+        views = [np.asarray(v, np.float32) for v in imgs]
+        batched = views[0].ndim == 4
+        views = [crop(v if batched else v[None]) for v in views]
+        n, nb = len(views), views[0].shape[0]
+        x = [tensor(v) for v in views]
+    else:
+        if isinstance(imgs, (list, tuple)):
+            imgs = np.stack([np.asarray(v) for v in imgs],
+                            axis=1 if np.asarray(imgs[0]).ndim == 4 else 0)
+        imgs = np.asarray(imgs, np.float32)
+        imgs = crop(imgs if imgs.ndim == 5 else imgs[None])
+        nb, n = imgs.shape[:2]
+        x = tensor(imgs)
+
+    def prep(a):
+        a = np.asarray(a, np.float32)
+        while a.ndim < 4:
+            a = a[None]
+        return tensor(a)
+
+    def prep_range(a):
+        a = np.asarray(a, np.float32)
+        return tensor(np.broadcast_to(a, (nb, n)) if a.ndim < 2 else a)
+
+    return x, [prep(K), prep(R), prep(t), prep_range(dmin), prep_range(dmax)]
+
+
+def staging_request(case, seed):
+    """A request of the named layout (random values from `seed`): 3 views
+    of 64x96, stacked, batched (B 2, scalar depth range), as a list, ragged
+    (unbatched and batched), in float64, or padded to a non-/32 size."""
+    rng = np.random.default_rng(seed)
+    nb = 2 if case in ("batched", "ragged_batched") else 1
+    imgs = rng.random((nb, 3, 64, 96, 3)).astype(np.float32)
+    K, R = (rng.random((nb, 3, 3, 3)).astype(np.float32) for _ in "KR")
+    t = rng.random((nb, 3, 3, 1)).astype(np.float32)
+    dmin, dmax = rng.random((nb, 3)).astype(np.float32), 10.0
+    one = (imgs[0], K[0], R[0], t[0], dmin[0], dmax)
+    if case == "stacked":
+        return one
+    if case == "batched":
+        return imgs, K, R, t, 5.0, dmax
+    if case == "listed":
+        return (list(imgs[0]),) + one[1:]
+    if case == "ragged":
+        return ([imgs[0, 0], imgs[0, 1, :, :70], imgs[0, 2, :40]],) + one[1:]
+    if case == "ragged_batched":
+        return ([imgs[:, 0], imgs[:, 1, :, :70], imgs[:, 2, :40]], K, R, t,
+                dmin, dmax)
+    if case == "float64":
+        return tuple(np.asarray(a, np.float64) for a in one)
+    assert case == "cropped"
+    return (np.pad(imgs[0], ((0, 0), (0, 7), (0, 13), (0, 0))),) + one[1:]
+
+
+def staged(imgs, K, R, t, dmin, dmax):
+    """A request's model inputs as `Predictor` stages them on the CPU."""
+    views, ragged, _ = Predictor._views(imgs)
+    nb, n = views[0].shape[0], len(views)
+    cams = Predictor._cams(K, R, t, dmin, dmax, nb, n)
+    return _stage(views, ragged, cams, torch.device("cpu"))
+
+
+def assert_bitwise(got, want):
+    if isinstance(want, list):
+        assert isinstance(got, list) and len(got) == len(want)
+        for g, w in zip(got, want):
+            assert_bitwise(g, w)
+        return
+    assert got.dtype == want.dtype == torch.float32
+    assert got.shape == want.shape and got.is_contiguous()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+STAGING_CASES = ["stacked", "batched", "listed", "ragged", "ragged_batched",
+                 "float64", "cropped"]
+
+
+def recording_predictor():
+    """A CPU Predictor whose model records its inputs and returns zeros."""
+    pred = Predictor(architecture="mvsnet", device="cpu", bf16=False)
+    seen = []
+
+    def model(x, *cams, **kwargs):
+        seen.append((x, list(cams)))
+        nb = (x[0] if isinstance(x, list) else x).shape[0]
+        return {"depth": torch.zeros(nb, 2, 3),
+                "photometric_confidence": torch.zeros(nb, 2, 3)}
+
+    pred.model = model
+    return pred, seen
+
+
+@pytest.mark.parametrize("case", STAGING_CASES)
+def test_staged_inputs_equal_the_parent_path(case):
+    """The staging gives the model the parent's tensors bit for bit,
+    request after request."""
+    pred, seen = recording_predictor()
+    for seed in (1, 2):
+        req = staging_request(case, seed)
+        want_x, want_cams = parent_inputs(*req)
+        x, cams = staged(*req)
+        assert_bitwise(x, want_x)
+        assert_bitwise(cams, want_cams)
+        pred(*req)
+        assert_bitwise(seen[-1][0], want_x)
+        assert_bitwise(seen[-1][1], want_cams)
+
+
+@pytest.mark.parametrize("case", ["stacked", "ragged"])
+def test_staged_inputs_do_not_alias_the_caller_or_the_buffers(case):
+    """A staged request's tensors keep their values when the caller
+    refills its arrays and the next request is staged."""
+    req = staging_request(case, 3)
+    want = parent_inputs(*req)
+    x, cams = staged(*req)
+    for a in (req[0] if isinstance(req[0], list) else [req[0]]) + \
+            list(req[1:5]):
+        a[...] = -1.0
+    staged(*staging_request(case, 4))
+    assert_bitwise(x, want[0])
+    assert_bitwise(cams, want[1])
+
+
+@pytest.mark.parametrize("case", ["stacked", "ragged"])
+def test_threads_sharing_a_predictor_keep_their_own_inputs(case):
+    """Two threads calling one Predictor at once each hand the model their
+    own request's inputs: a request's host buffers are its own."""
+    pred, seen = recording_predictor()
+    reqs = {k: staging_request(case, 10 + k) for k in range(2)}
+    want = {k: parent_inputs(*r) for k, r in reqs.items()}
+    start = threading.Barrier(2)
+
+    def serve(k):
+        start.wait()
+        for _ in range(20):
+            pred(*reqs[k])
+
+    threads = [threading.Thread(target=serve, args=(k,)) for k in reqs]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert len(seen) == 40
+    for x, cams in seen:
+        k = 0 if torch.equal(cams[0], want[0][1][0]) else 1
+        assert_bitwise(x, want[k][0])
+        assert_bitwise(cams, want[k][1])
 
 
 def test_run_depthmaps_writes_npz_and_sentinel(tmp_path, npz_checkpoint):

@@ -93,10 +93,10 @@ def test_request_spans_nest(arch, predictors):
     assert set(counts) == set(want)
     for s in spans:
         assert parent(s, spans) == want[s[2]], s[2]
-    # one upload for the images and one for each of the five cameras, each
-    # after its own host copy, the stack and crop one more `.prepare`
-    assert counts[P + "upload"] == 6
-    assert counts[P + "prepare"] == 7
+    # one upload for the cameras and one for each view, each after its own
+    # host copy, the crop one more `.prepare`
+    assert counts[P + "upload"] == N + 1
+    assert counts[P + "prepare"] == N + 2
     once = [n for n in want if not n.endswith((".prepare", ".upload"))]
     if arch == "mvsnet":
         assert all(counts[n] == 1 for n in once), counts
@@ -113,17 +113,16 @@ def test_request_spans_nest(arch, predictors):
 
 @pytest.mark.parametrize("form", ["listed", "stacked", "ragged"])
 def test_each_upload_follows_its_copy(form, predictors):
-    """`.prepare` and `.upload` alternate after the stack and crop, one
-    pair an uploaded array (a ragged request uploads each view), and the
-    traced request returns what the untraced one returns."""
+    """`.prepare` and `.upload` alternate after the crop, one pair for the
+    cameras and one a view, and the traced request returns what the
+    untraced one returns."""
     pred = predictors["mvsnet"]
     imgs, K, R, t, dmin, dmax = request()
-    uploads = 6
+    uploads = N + 1
     if form == "stacked":
         imgs = np.stack(imgs)
     elif form == "ragged":
         imgs = [imgs[0], imgs[1][:, :70], imgs[2][:40]]    # cropped to /32
-        uploads = N + 5
     want = pred(imgs, K, R, t, dmin, dmax)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         got = pred(imgs, K, R, t, dmin, dmax)

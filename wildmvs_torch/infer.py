@@ -99,13 +99,40 @@ class Predictor:
             raise ValueError(f"images too small: {h}x{w} (need >= 32x32)")
         return imgs[..., :nh, :nw, :]
 
-    def _tensor(self, x) -> torch.Tensor:
-        """`x` copied to a new f32 host array (span `.prepare`), then
-        uploaded (span `.upload`)."""
-        with span(f"{SPAN}.prepare"):
-            a = np.array(x, np.float32)
-        with span(f"{SPAN}.upload"):
-            return torch.as_tensor(a, device=self.device)
+    @classmethod
+    def _views(cls, imgs) -> tuple[list, bool, bool]:
+        """(views, ragged, batched): the request's views, each [B, h, w, 3]
+        cropped to /32 without a copy; whether they came as a list of
+        different sizes (each then cropped on its own and handed to the
+        model as a list); whether the input had a batch axis."""
+        if isinstance(imgs, (list, tuple)):
+            views = [np.asarray(v) for v in imgs]
+            ragged = len({v.shape[-3:-1] for v in views}) > 1
+        else:
+            a = np.asarray(imgs)
+            views = ([a[:, i] for i in range(a.shape[1])] if a.ndim == 5
+                     else list(a))
+            ragged = False
+        batched = views[0].ndim == 4
+        return ([cls._crop32(v if batched else v[None]) for v in views],
+                ragged, batched)
+
+    @staticmethod
+    def _cams(K, R, t, depth_min, depth_max, nb: int, n: int) -> list:
+        """K, R, t as f32 [B, N, r, c] (missing leading axes as 1) and the
+        depth range as f32 [B, N] (scalars broadcast)."""
+        def prep(a):                 # [., N, r, c] -> [B, N, r, c]
+            a = np.asarray(a, np.float32)
+            while a.ndim < 4:
+                a = a[None]
+            return a
+
+        def prep_range(a):
+            a = np.asarray(a, np.float32)
+            return np.broadcast_to(a, (nb, n)) if a.ndim < 2 else a
+
+        return [prep(K), prep(R), prep(t), prep_range(depth_min),
+                prep_range(depth_max)]
 
     def __call__(self, imgs, K, R, t, depth_min, depth_max,
                  reference_frame: int = 0) -> dict:
@@ -116,48 +143,26 @@ class Predictor:
         confidence} (vis_mvsnet: one confidence per stage, [3, h, w]),
         without the batch axis when the input had none.
 
+        Each input is copied once, straight from the caller's array, into
+        a host buffer of this request's own and uploaded asynchronously
+        (`_stage`). So a call leaves nothing in the Predictor: threads
+        that share one do not share its inputs' buffers. (The model's
+        forward is not tested under concurrent calls, and a `mesh` is
+        ambient to the whole process: serve a mesh from one thread.)
+
         Under a profiler a call records the span
         `wildmvs_torch.Predictor.request` and, inside it, `.prepare` (the
-        views' stack and crop, then each f32 copy made for an upload),
-        `.upload` (each copy's upload), `.forward` and `.fetch`."""
+        views' crop; the host buffers and the cameras' copy into theirs;
+        each view's copy into its slot), `.upload` (the enqueue of the
+        cameras' asynchronous copy, then of each view's after its
+        `.prepare`), `.forward` and `.fetch`."""
         with span(f"{SPAN}.request"):
             with span(f"{SPAN}.prepare"):
-                ragged = (isinstance(imgs, (list, tuple))
-                          and len({tuple(np.asarray(v).shape[-3:-1])
-                                   for v in imgs}) > 1)
-                if ragged:
-                    views = [np.asarray(v, np.float32) for v in imgs]
-                    batched = views[0].ndim == 4
-                    views = [self._crop32(v if batched else v[None])
-                             for v in views]
-                    n, nb = len(views), views[0].shape[0]
-                else:
-                    if isinstance(imgs, (list, tuple)):
-                        imgs = np.stack([np.asarray(v) for v in imgs],
-                                        axis=1 if np.asarray(imgs[0]).ndim
-                                        == 4 else 0)
-                    imgs = np.asarray(imgs, np.float32)
-                    batched = imgs.ndim == 5
-                    imgs = self._crop32(imgs if batched else imgs[None])
-                    nb, n = imgs.shape[:2]
-            x = ([self._tensor(v) for v in views] if ragged
-                 else self._tensor(imgs))
-
-            def prep(a):                 # [., N, r, c] -> [B, N, r, c]
-                a = np.asarray(a, np.float32)
-                while a.ndim < 4:
-                    a = a[None]
-                return self._tensor(a)
-
-            def prep_range(a):
-                a = np.asarray(a, np.float32)
-                if a.ndim < 2:
-                    a = np.broadcast_to(a, (nb, n))
-                return self._tensor(a)
-
+                views, ragged, batched = self._views(imgs)
+                nb, n = views[0].shape[0], len(views)
+                cams = self._cams(K, R, t, depth_min, depth_max, nb, n)
             with torch.inference_mode(), use_mesh(self.mesh):
-                cams = [prep(K), prep(R), prep(t), prep_range(depth_min),
-                        prep_range(depth_max)]
+                x, cams = _stage(views, ragged, cams, self.device)
                 with span(f"{SPAN}.forward"):
                     out = self.model(x, *cams,
                                      reference_frame=reference_frame,
@@ -168,3 +173,68 @@ class Predictor:
         if not batched:
             depth, conf = depth[0], conf[0]
         return {"depth": depth, "confidence": conf}
+
+
+#: each camera array starts on a multiple of this many f32 (256 bytes) of
+#: the flat buffer, as aligned as a tensor of its own, since a kernel that
+#: reads it may choose its path by alignment
+_ALIGN = 64
+
+
+def _stage(views: list, ragged: bool, cams: list,
+           device: torch.device) -> tuple:
+    """Views [B, h, w, 3] (any dtype; one size unless `ragged`) and f32
+    camera arrays to `device`, each copied once on the host. Returns (the
+    images [B, N, h, w, 3], or a list of [B, h_i, w_i, 3] when `ragged`;
+    the cameras as tensors of their shapes).
+
+    Each view is copied, cast to f32 by numpy's assignment on the calling
+    thread, into its slot of a host buffer of this request's own: one
+    [B, N, h, w, 3] for stacked views, one [B, h_i, w_i, 3] each for
+    ragged ones. Torch's copy would split it over the intra-op OpenMP
+    team, one thread a core, which spin after each region; where other
+    threads share the cores (the CUDA runtime's, other processes'), one
+    preempted member holds the whole copy back, and on an 8-core H100
+    host a tenth of the 512x640 requests took 1.5x the median. The
+    cameras share one flat buffer and one upload and are sliced on the
+    device. On the card the buffers are pinned and each
+    slot's upload is enqueued with `non_blocking=True` as soon as it is
+    filled, so its DMA overlaps the copy of the next view. PyTorch's
+    caching host allocator keeps a freed pinned block for the next
+    request and records an event on every asynchronous copy out of it, so
+    it hands the block out again only once those copies are done. The
+    device tensors are new ones from the caching allocator. On the CPU
+    the host buffers are the model's inputs, and each upload is a copy
+    onto itself, which returns at once.
+    """
+    if ragged:
+        shapes = [tuple(v.shape) for v in views]
+    else:
+        if len({v.shape for v in views}) > 1:
+            raise ValueError("all input arrays must have the same shape")
+        shapes = [(views[0].shape[0], len(views)) + views[0].shape[1:]]
+    starts = [0]
+    for c in cams:
+        starts.append(starts[-1] + -(-c.size // _ALIGN) * _ALIGN)
+    pin = device.type == "cuda"
+    with span(f"{SPAN}.prepare"):
+        host = [torch.empty(s, dtype=torch.float32, pin_memory=pin)
+                for s in shapes]
+        flat = torch.empty(starts[-1], dtype=torch.float32, pin_memory=pin)
+        flat_np = flat.numpy()
+        for c, o in zip(cams, starts):
+            flat_np[o:o + c.size] = c.reshape(-1)
+    with span(f"{SPAN}.upload"):
+        flat = flat.to(device, non_blocking=True)
+    dev = ([torch.empty(s, dtype=torch.float32, device=device)
+            for s in shapes] if pin else host)
+    for i, v in enumerate(views):
+        src, out = ((host[i], dev[i]) if ragged else
+                    (host[0][:, i], dev[0][:, i]))
+        for b in range(v.shape[0]):
+            with span(f"{SPAN}.prepare"):
+                src[b].numpy()[...] = v[b]
+            with span(f"{SPAN}.upload"):
+                out[b].copy_(src[b], non_blocking=True)
+    return (dev if ragged else dev[0],
+            [flat[o:o + c.size].view(c.shape) for c, o in zip(cams, starts)])

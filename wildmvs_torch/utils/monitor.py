@@ -19,6 +19,11 @@ layer boundaries: `Predictor.request` (`.prepare`, `.upload`,
 `train_step` (`.forward`, `.loss`, `.backward`, `.optimizer`). Their
 ranges share the trace's clock with the device records, so the idle
 gaps and device time between launches can be put down to them.
+
+Beside the spans: `Predictor` stages its inputs in pinned host buffers
+from PyTorch's caching host allocator, and `torch.cuda.host_memory_stats()`
+counts that allocator's blocks; its `num_host_alloc` grows only when a
+request finds no freed block to reuse.
 """
 from __future__ import annotations
 
