@@ -20,6 +20,9 @@ depth of the stage before (MVSNet has one stage). For each stage k:
                    stage's interval, every pixel; worst stage and request
   conf_mean_abs    the mean |confidence - reference confidence|
   *_stage<k>       with several stages, each stage's numbers alone
+A stage's interval is the reference's `intervals(cfg, lo, hi)`, or, where
+the reference's `serve` returns them, the request's own (CVP-MVSNet's
+refinement steps follow each request's cameras and coarser depth).
 Training (the first three steps, the reference following them):
   depth_mean_itv,  of the first step's training forward's depth, as
   depth_p99_itv    above
@@ -67,13 +70,16 @@ def serve_numbers(triples: list, intervals: list) -> dict:
     "depths" (a stage depth [h, w] numpy each) and "confidence" (numpy);
     program and reference "scores" too (a score volume [D, h, w] tensor
     each stage); regressed is the reference's regression of the
-    program's scores. intervals: one a stage. With several stages, each
-    stage's own numbers too (`_stage<k>`)."""
+    program's scores. intervals: one a stage; a reference whose intervals
+    depend on the request returns that request's own as its "intervals",
+    which then take their place. With several stages, each stage's own
+    numbers too (`_stage<k>`)."""
     stats = ("median", "mean", "p99")
-    staged = len(intervals) > 1
     out = {}
     for prog, ref, own in triples:
-        for k, itv in enumerate(intervals, start=1):
+        itvs = ref.get("intervals", intervals)
+        staged = len(itvs) > 1
+        for k, itv in enumerate(itvs, start=1):
             tag = f"_stage{k}" if staged else ""
             e = np.abs(np.asarray(prog["depths"][k - 1], np.float64)
                        - np.asarray(ref["depths"][k - 1], np.float64)) / itv

@@ -33,26 +33,35 @@ PROBE_CAMERA = 24
 
 class Capture:
     """Forward hooks on the program's modules, kept for each request as
-    device tensors: the stage depths (`stage_modules`, output[0]) and
-    the score volumes (`score_modules`, the output of batch 0 without its
-    channel axis); and, only while `timing_regularizers` is entered,
-    CUDA events around each call of the `regularizer_modules`."""
+    device tensors, one a call in call order, cleared by `reset` at the
+    start of a request: the stage depths (`stage_modules`, output[0]) and
+    the score volumes (`score_modules`, the output of batch 0, without its
+    trailing channel axis unless the configuration's `score_channel_axis`
+    is false); and, only while `timing_regularizers` is entered, CUDA
+    events around each call of the `regularizer_modules`."""
 
     def __init__(self, model, stage_modules, score_modules,
-                 regularizer_modules):
+                 regularizer_modules, score_channel_axis: bool = True):
         self.mods = dict(model.named_modules())
-        self.last = {}
+        self.calls = {}
         self.events = []
         self.timing = False
         self.stage_modules = list(stage_modules)
         self.score_modules = list(score_modules)
         self.regularizer_modules = list(regularizer_modules)
         self.handles = [self.mods[name].register_forward_hook(
-            lambda _m, _a, out, name=name: self.last.__setitem__(
-                name, out[0])) for name in self.stage_modules]
+            lambda _m, _a, out, name=name: self._keep(name, out[0]))
+            for name in self.stage_modules]
         self.handles += [self.mods[name].register_forward_hook(
-            lambda _m, _a, out, name=name: self.last.__setitem__(
-                name, out[0, ..., 0])) for name in self.score_modules]
+            lambda _m, _a, out, name=name: self._keep(
+                name, out[0, ..., 0] if score_channel_axis else out[0]))
+            for name in self.score_modules]
+
+    def _keep(self, name: str, value):
+        self.calls.setdefault(name, []).append(value)
+
+    def reset(self):
+        self.calls = {}
 
     def _mark(self, start: bool):
         ev = torch.cuda.Event(enable_timing=True)
@@ -79,11 +88,16 @@ class Capture:
             for h in hooks:
                 h.remove()
 
+    def _kept(self, names) -> list:
+        return [v for n in names for v in self.calls[n]]
+
     def stages(self) -> list:
-        return [self.last[n] for n in self.stage_modules]
+        return self._kept(self.stage_modules)
 
     def scores(self) -> list:
-        return [self.last[n] for n in self.score_modules]
+        """Each score module's volumes in call order, the modules in the
+        configuration's order: one a stage."""
+        return self._kept(self.score_modules)
 
     def regularizer_s(self) -> float:
         return sum(a.elapsed_time(b) for a, b in self.events) * 1e-3
@@ -91,7 +105,7 @@ class Capture:
     def remove(self):
         for h in self.handles:
             h.remove()
-        self.last.clear()
+        self.calls = {}
 
 
 def request_tensors(req: dict, device) -> dict:
@@ -118,11 +132,12 @@ class ServeCell:
         self.state, self.reference_s = cell_weights(
             ref_mod, cfg, seed, device, request_tensors(probe, device))
         self.pred = Predictor(architecture=cfg["architecture"],
-                              device=device)
+                              device=device, **cfg.get("predictor", {}))
         self.pred.model.load_state_dict(self.state)
         self.capture = Capture(self.pred.model, cfg["stage_modules"],
                                cfg["score_modules"],
-                               cfg["regularizer_modules"])
+                               cfg["regularizer_modules"],
+                               cfg.get("score_channel_axis", True))
         self.order = traffic.request_order(seed, self.rig.cameras)
         self.latency = []          # s a request of the window, inf: failed
         self.views = []            # the cameras of each request
@@ -138,6 +153,7 @@ class ServeCell:
         """One request of the loop; with `keep` it counts, and its output
         may enter the sample."""
         req = traffic.request(self.rig, self.imgs, next(self.order), self.n)
+        self.capture.reset()
         t0 = time.perf_counter()
         try:
             with span("Predictor.__call__", self.capture.timing):
@@ -236,6 +252,19 @@ class ServeCell:
         model.regress_dtype = torch.bfloat16
         return model
 
+    def program_output(self, x: dict, out: dict) -> dict:
+        """The program's output of one request as the check reads it: the
+        stage depths (numpy, the last the returned depth), the confidence
+        and the score volumes. A cascade whose configuration hooks no stage
+        module takes each earlier stage's depth from the reference's f32
+        regression of its own score volumes (`stage_depths`)."""
+        stages = [s[0].float().cpu().numpy() for s in out["stages"]]
+        if not stages and len(out["scores"]) > 1:
+            stages = self.ref_mod.stage_depths(self.cfg, x,
+                                               out["scores"])[:-1]
+        return {"depths": stages + [out["depth"]],
+                "confidence": out["confidence"], "scores": out["scores"]}
+
     def numbers(self, control: bool = False) -> dict:
         """The check's numbers over the sampled requests: the program's
         outputs against the reference's; with `control` the control
@@ -249,13 +278,8 @@ class ServeCell:
                 req = traffic.request(self.rig, self.imgs,
                                       self.views[index][0], self.n)
                 x = request_tensors(req, self.device)
-                if ctl is None:
-                    prog = {"depths": [s[0].float().cpu().numpy() for s in
-                                       out["stages"]] + [out["depth"]],
-                            "confidence": out["confidence"],
-                            "scores": out["scores"]}
-                else:
-                    prog = self.ref_mod.serve(ctl, x)
+                prog = (self.program_output(x, out) if ctl is None
+                        else self.ref_mod.serve(ctl, x))
                 centres = prog["depths"][:-1]
                 triples.append((
                     prog, self.ref_mod.serve(ref, x, centres=centres or None),

@@ -13,6 +13,8 @@ import torch
 
 from mvsbench import files, run
 
+from inline_cvp import CVP_CELL
+
 CPU = torch.device("cpu")
 
 
@@ -32,10 +34,13 @@ def result(capsys, name, cell):
 
 @pytest.mark.parametrize("name,module", [
     ("mvsnet_d192.serve_512x640_n3", "mvsnet.MVSNet"),
-    ("vis_mvsnet_64_32_16.serve_1184x1600_n5", "vis_mvsnet.SingleStage")])
-def test_altered_depth_is_not_correct(monkeypatch, capsys, name, module):
+    ("vis_mvsnet_64_32_16.serve_1184x1600_n5", "vis_mvsnet.SingleStage"),
+    (CVP_CELL, "cvp_mvsnet.CVPMVSNet")])
+def test_altered_depth_is_not_correct(request, monkeypatch, capsys, name,
+                                      module):
     """The depth altered where it is produced: a quarter of the rows of
-    MVSNet's depthmap, and of each of Vis-MVSNet's stage depths."""
+    MVSNet's depthmap, of each of Vis-MVSNet's stage depths, and of
+    CVP-MVSNet's finest depth."""
     import importlib
     path, cls_name = module.split(".")
     cls = getattr(importlib.import_module(f"wildmvs_torch.models.{path}"),
@@ -50,7 +55,8 @@ def test_altered_depth_is_not_correct(monkeypatch, capsys, name, module):
         return dict(out, depth=d) if isinstance(out, dict) else (d,) + out[1:]
 
     monkeypatch.setattr(cls, "forward", altered)
-    cell = small(name, warmup_requests=1, check_requests=2)
+    cell = (request.getfixturevalue("cvp") if name == CVP_CELL
+            else small(name, warmup_requests=1, check_requests=2))
     got = result(capsys, name, cell)
     assert got["correct"] is False
     assert any(v["value"] > v["limit"] for v in got["checks"].values())

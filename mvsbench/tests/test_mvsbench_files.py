@@ -32,6 +32,8 @@ def test_config_file(entry):
     assert cfg["name"] == entry["name"]
     assert cfg["reduced"] == entry["reduced"] == []
     files.reference(cfg["architecture"])          # a reference exists
+    assert isinstance(cfg.get("predictor", {}), dict)   # Predictor(**it)
+    assert cfg.get("score_channel_axis", True) in (True, False)
 
 
 @pytest.mark.parametrize("entry", BENCH["workloads"], ids=lambda w: w["name"])
@@ -48,7 +50,7 @@ def test_workload_file(entry):
     staged = [f"depth_{s}_itv" for s in stats] + ["score_err",
                                                    "depth_regress_itv"]
     keys = (set(staged) | {"conf_mean_abs", "conf_regress_abs"}
-            | {f"{n}_stage{k}" for n in staged for k in (1, 2, 3)}
+            | {f"{n}_stage{k}" for n in staged for k in range(1, 9)}
             if cell["mode"] == "serve" else
             {"depth_mean_itv", "depth_p99_itv", "loss_gap", "grad_gap",
              "grad_gap_median", "change_gap", "change_gap_median"})

@@ -23,6 +23,7 @@ print(json.dumps({"rc": rc, "top": sorted({m.split(".")[0]
 REFERENCE = """
 import json, sys
 import mvsbench.reference.mvsnet, mvsbench.reference.vis_mvsnet
+import mvsbench.reference.cvp_mvsnet
 import mvsbench.reference.common, mvsbench.work
 print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
 """

@@ -172,3 +172,108 @@ def test_mvsnet_train_step_matches_the_port():
             assert float(out["train_loss"]) == pytest.approx(ref_loss,
                                                              rel=2e-2)
         opt.step()
+
+
+# ---------------------------------------------------------------------------
+# CVP-MVSNet (configuration inline: tests/inline_cvp.py)
+# ---------------------------------------------------------------------------
+
+def cvp_setup(seed=5, hw=(64, 96), n=3):
+    from inline_cvp import CVP_CONFIG
+    cfg = dict(CVP_CONFIG)
+    ref_mod = files.reference(cfg["architecture"])
+    rig_spec = dict(files.workload("mvsnet_d192.serve_512x640_n3")["rig"],
+                    focal={f"{hw[0]}x{hw[1]}": 1156.8 * hw[1] / 640})
+    r = traffic.dtu_rig(rig_spec, *hw)
+    imgs = traffic.images(seed, r.cameras, *hw, CPU)
+    probe = request_tensors(traffic.request(r, imgs, 24, n), CPU)
+    state, _ = weights.cell_weights(ref_mod, cfg, seed, CPU, probe)
+    model = ref_mod.build(cfg)
+    model.load_state_dict(state)
+    x = request_tensors(traffic.request(r, imgs, 10, n), CPU)
+    port = port_model("cvp_mvsnet", state,
+                      nscale=cfg["predictor"]["cvp_nscale"],
+                      sweep_method="gather")
+    return cfg, ref_mod, model, port, x
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("mode", ["eval", "train"])
+def test_cvp_mvsnet_matches_the_port_level_by_level(mode):
+    """The f32 port (exact gather) against the reference re-centred on the
+    port's own coarser depths, each level: eval (96 coarse hypotheses,
+    epipolar steps) and train mode (48, fixed halved steps; BatchNorm on
+    the batch's statistics). Both are f32 and sum in other orders (the
+    variance, the 96-way softmax), so a level's depth agrees to a hundredth
+    of its interval, its score volume to 1e-4 and the confidence to 1e-4;
+    the reference's regression of the port's own volumes gives the port's
+    depths to f32 rounding (1e-3 mm at 425-935 mm)."""
+    cfg, ref_mod, model, port, x = cvp_setup()
+    getattr(port, mode)()
+    getattr(model, mode)()
+    seen = []
+    port.cost_reg_refine.register_forward_hook(
+        lambda _m, _a, o: seen.append(o[0]))
+    out = port(x["imgs"], x["K"], x["R"], x["t"], x["depth_min"],
+               x["depth_max"])
+    depths = [d[0].numpy() for d in reversed(out["depth_est_list"])]
+    nscale = cfg["predictor"]["cvp_nscale"]
+    assert len(depths) == len(seen) == nscale
+    mine = ref_mod.serve(model, x, centres=depths[:-1])
+    assert len(mine["intervals"]) == nscale
+    for k in range(nscale):
+        e = np.abs(depths[k] - mine["depths"][k]) / mine["intervals"][k]
+        assert e.max() < 1e-2, (k, e.max())
+        assert check.score_err(seen[k], mine["scores"][k]) < 1e-4, k
+    conf = out["photometric_confidence"][0].numpy()
+    assert np.abs(conf - mine["confidence"]).max() < 1e-4
+    if mode == "eval":
+        own = ref_mod.stage_depths(cfg, x, seen)
+        for k in range(nscale):
+            assert np.abs(own[k] - depths[k]).max() < 1e-3, k
+        steps = mine["intervals"]
+        assert steps[0] == pytest.approx((935.0 - 425.0) / 96)
+    else:
+        steps = mine["intervals"]
+        assert steps == pytest.approx(ref_mod.intervals(cfg, 425.0, 935.0))
+
+
+@torch.no_grad()
+def test_cvp_forward_runs_on_the_meta_device():
+    """trace_extras counts a request's flops there: no Python branch on a
+    tensor's value."""
+    from mvsbench import work
+    cfg, ref_mod, _, _, x = cvp_setup()
+    with torch.device("meta"):
+        model = ref_mod.build(cfg).eval()
+    meta = {k: v.to("meta") for k, v in x.items()}
+    flops = work.count_flops(lambda: model(
+        meta["imgs"], meta["K"], meta["R"], meta["t"], meta["depth_min"],
+        meta["depth_max"]))
+    assert flops > 0
+
+
+@torch.no_grad()
+def test_cvp_fused_jobs_at_the_dtu_eval_size():
+    """One fused launch a level at 1184x1600, nscale 5: the coarsest
+    level's operations bind (its live samples counted), every finer
+    level's bytes even with every sample live."""
+    from mvsbench import work
+    from mvsbench.reference import cvp_mvsnet
+    cell = files.workload("vis_mvsnet_64_32_16.serve_1184x1600_n5")
+    r = traffic.dtu_rig(cell["rig"], 1184, 1600)
+    imgs = [np.zeros((1184, 1600, 3), np.float32)] * r.cameras
+    x = request_tensors(traffic.request(r, imgs, 24, 5), CPU)
+    jobs = cvp_mvsnet.serve_jobs({"predictor": {"cvp_nscale": 5}}, x)
+    launches = jobs["fused_cost_volume"]
+    assert len(launches) == 5
+    coarse, *fine = launches
+    assert (coarse.operations / work.F32_FLOPS
+            > coarse.bytes / work.HBM_BYTES_PER_S)
+    full = 4 * 96 * 74 * 100
+    assert 0 < coarse.operations - 74 * 100 * 96 * 16 * 16 < full * 16 * 8
+    for job in fine:
+        assert job.bytes / work.HBM_BYTES_PER_S >= (job.operations
+                                                    / work.F32_FLOPS)
+    assert launches.bound_s() == pytest.approx(sum(j.bound_s()
+                                                   for j in launches))

@@ -48,6 +48,14 @@ class Work(NamedTuple):
                     self.operations + other.operations)
 
 
+class Launches(tuple):
+    """The jobs of several launches of one kernel, one after another: the
+    bound is the sum of each launch's."""
+
+    def bound_s(self) -> float:
+        return sum(job.bound_s() for job in self)
+
+
 def live_mask(x: torch.Tensor, y: torch.Tensor, h: int, w: int):
     """Samples at source pixels (x, y) with a corner inside an h x w map:
     floor(x) in [-1, w - 1] and floor(y) in [-1, h - 1]."""
