@@ -2953,11 +2953,11 @@ def record_regress(model):
     levels = []
     real = model.regress
 
-    def recording(cost, hyp, slab=None):
-        prob, depth = real(cost, hyp, slab)
-        levels.append((depth[0].float().cpu().numpy(),
+    def recording(cost, hyp, slab=None, **kw):
+        out = real(cost, hyp, slab, **kw)
+        levels.append((out[1][0].float().cpu().numpy(),
                        (hyp[:, 1] - hyp[:, 0]).flatten()[0].item()))
-        return prob, depth
+        return out
     model.regress = recording
     return levels
 

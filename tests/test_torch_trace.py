@@ -1,15 +1,20 @@
 """The port's trace spans (utils/monitor.span), on the CPU: no record
 without a profiler, every span of a request and of a training step under
 one, properly nested, each upload after its host copy, the same outputs
-traced as untraced, and the regularizer spans holding exactly the
-regularizer modules' calls."""
+traced as untraced, the regularizer spans holding exactly the
+regularizer modules' calls, CVP-MVSNet's level spans in call order (in
+train mode and under `remat_levels` too), and the benchmark's reader of
+the idle gaps under those spans."""
 import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from mvsbench import files
+from mvsbench.trace import Trace
 from wildmvs_torch.data.synthetic import SyntheticMVSDataset, collate
 from wildmvs_torch.infer import Predictor
+from wildmvs_torch.models.cvp_mvsnet import CVPMVSNet
 from wildmvs_torch.train import trainer as T
 from wildmvs_torch.train.config import TrainConfig
 from wildmvs_torch.utils import monitor
@@ -22,7 +27,10 @@ REGULARIZERS = {
     "mvsnet": ["cost_regularization"],
     "vis_mvsnet": [f"stage{k}.{m}" for k in (1, 2, 3)
                    for m in ("reg", "reg_pair", "reg_fuse")],
+    "cvp_mvsnet": ["cost_reg_refine"],
 }
+CVP = "wildmvs_torch.cvp_mvsnet."
+LEVEL_PARTS = ("hypotheses", "sweep", "regularize", "regress")
 
 
 def request(dtype=np.float32, seed=0):
@@ -70,7 +78,7 @@ def test_span_records_nothing_without_a_profiler(monkeypatch, predictors):
             monitor.span("wildmvs_torch.test")
 
 
-@pytest.mark.parametrize("arch", ["mvsnet", "vis_mvsnet"])
+@pytest.mark.parametrize("arch", ["mvsnet", "vis_mvsnet", "cvp_mvsnet"])
 def test_request_spans_nest(arch, predictors):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         out = predictors[arch](*request())
@@ -86,6 +94,10 @@ def test_request_spans_nest(arch, predictors):
     if arch == "mvsnet":
         want.update({model + p: P + "forward"
                      for p in ("sweep", "regularize", "regress")})
+    elif arch == "cvp_mvsnet":
+        nscale = predictors[arch].forward_kwargs["nscale"]
+        want.update({f"{model}level{k}.{p}": P + "forward"
+                     for k in range(1, nscale + 1) for p in LEVEL_PARTS})
     else:
         want.update({f"{model}stage{k}.{p}": P + "forward"
                      for k in (1, 2, 3)
@@ -98,7 +110,7 @@ def test_request_spans_nest(arch, predictors):
     assert counts[P + "upload"] == N + 1
     assert counts[P + "prepare"] == N + 2
     once = [n for n in want if not n.endswith((".prepare", ".upload"))]
-    if arch == "mvsnet":
+    if arch in ("mvsnet", "cvp_mvsnet"):
         assert all(counts[n] == 1 for n in once), counts
     else:
         assert all(counts[n] == 1 for n in once
@@ -135,7 +147,7 @@ def test_each_upload_follows_its_copy(form, predictors):
     assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
 
 
-@pytest.mark.parametrize("arch", ["mvsnet", "vis_mvsnet"])
+@pytest.mark.parametrize("arch", ["mvsnet", "vis_mvsnet", "cvp_mvsnet"])
 def test_regularize_spans_hold_the_regularizers_alone(arch, predictors):
     """Each module call, recorded as a range by forward hooks, lies inside
     a `.regularize` span exactly when the module is one of the
@@ -199,3 +211,78 @@ def test_train_step_spans():
     for s in spans:
         if s[2].startswith("wildmvs_torch.mvsnet."):
             assert parent(s, spans) == f"{step}.forward"
+
+
+def level_order(spans) -> list:
+    """The CVP spans' names without the prefix, in the order they start."""
+    return [s[2].removeprefix(CVP) for s in sorted(spans)]
+
+
+def test_cvp_levels_record_in_call_order():
+    """An nscale-3 request records `features`, then for each level, the
+    coarsest first, its hypotheses, sweep, regularize and regress, each
+    once and each directly inside `Predictor.forward`."""
+    pred = Predictor(architecture="cvp_mvsnet", device="cpu", bf16=False,
+                     cvp_nscale=3)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        pred(*request())
+    spans = ranges(prof, "wildmvs_torch.")
+    cvp = [s for s in spans if s[2].startswith(CVP)]
+    assert level_order(cvp) == ["features"] + [
+        f"level{k}.{p}" for k in (1, 2, 3) for p in LEVEL_PARTS]
+    assert all(parent(s, spans) == P + "forward" for s in cvp)
+    assert all(a[1] <= b[0] for a, b in zip(sorted(cvp), sorted(cvp)[1:]))
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_cvp_train_spans_and_their_replay(remat):
+    """In train mode the forward records the same spans as at eval; under
+    `remat_levels` the backward replays each level's sweep, regularize
+    and regress, in its own spans, after the forward, the finest level
+    first."""
+    torch.manual_seed(0)
+    imgs, K, R, t, dmin, dmax = request()
+    x = torch.as_tensor(np.stack(imgs))[None]
+    cams = [torch.as_tensor(a)[None] for a in (K, R, t, dmin, dmax)]
+    model = CVPMVSNet(nscale=3, remat_levels=remat).train()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("test.forward"):
+            out = model(x, *cams)
+        out["depth"].mean().backward()
+    spans = ranges(prof, CVP)
+    [fwd] = ranges(prof, "test.forward")
+    first = [s for s in spans if s[1] <= fwd[1]]
+    replay = [s for s in spans if s[0] >= fwd[1]]
+    assert level_order(first) == ["features"] + [
+        f"level{k}.{p}" for k in (1, 2, 3) for p in LEVEL_PARTS]
+    assert len(first) + len(replay) == len(spans)
+    want = ([f"level{k}.{p}" for k in (3, 2, 1)
+             for p in ("sweep", "regularize", "regress")] if remat else [])
+    assert level_order(replay) == want
+
+
+CVP_IDLE = files.metric("cvp_level_idle_ms.serve")
+
+
+def trace_with(gaps: dict, units: int = 2) -> Trace:
+    return Trace(window_s=1.0, busy_s=0.5, units=units, device_ops={},
+                 memcpy_s=0.0, kernels=[], idle_gaps=gaps)
+
+
+def test_cvp_idle_reader_sums_the_level_gaps_a_request():
+    """The reader sums the gaps named by a CVP span, a request, and leaves
+    out gaps named by anything else: an operator called inside such a span
+    names its own gap."""
+    tr = trace_with({CVP + "features": 1e-3,
+                     CVP + "level2.hypotheses": 2e-3,
+                     CVP + "level5.regress": 3e-3,
+                     "wildmvs_torch.Predictor.prepare": 4e-3,
+                     "wildmvs_torch.mvsnet.sweep": 5e-3,
+                     "aten::conv3d": 6e-3})
+    assert CVP_IDLE.read(tr) == pytest.approx(3.0)
+
+
+@pytest.mark.parametrize("gaps", [
+    {}, {"wildmvs_torch.Predictor.forward": 1e-3, "aten::copy_": 1e-3}])
+def test_cvp_idle_reader_reads_none_without_cvp_spans(gaps):
+    assert CVP_IDLE.read(trace_with(gaps)) is None

@@ -57,6 +57,20 @@ grid carries none (the kernels get the hypotheses detached).
 
 Precision: `dtype` / `param_dtype` as in models/mvsnet.py; geometry,
 hypotheses, softmax and regression are f32.
+
+Trace spans (utils/monitor.span, recorded only under a profiler):
+`wildmvs_torch.cvp_mvsnet.features` (the image pyramid and the extractor
+at every level) and, per level k (1 the coarsest, nscale the finest: the
+call order), `wildmvs_torch.cvp_mvsnet.level<k>.hypotheses` (the level's
+projections and hypotheses: the coarse linspace, or the bicubic upsample
+and the per-pixel steps), `.sweep` (the cost volume), `.regularize` (the
+call of the shared regularizer and nothing else) and `.regress` (the
+softmax and the regression; the photometric confidence at the finest
+level). A `remat_levels` replay records its level's `.sweep`,
+`.regularize` and `.regress` again, inside the backward. No counter: the
+one data-dependent branch of the eval path, `cal_depth_hypo`'s fallback
+where no pixel is valid, is a `torch.where` on the device, and counting
+it would take a host sync a level.
 """
 from __future__ import annotations
 
@@ -75,8 +89,11 @@ from ..ops.resize import bicubic_double, bilinear_half
 from ..ops.select import masked_median
 from ..ops.volumes import (depth_regression, photometric_confidence,
                            softmax_depth)
+from ..utils.monitor import span
 from .api import register_model, view_list
 from .mvsnet import SWEEP_METHODS, compute_in, sweep_cost_volume
+
+SPAN = "wildmvs_torch.cvp_mvsnet"
 
 PYRAMID = (("conv0aa", 3, 64), ("conv0ba", 64, 64), ("conv0bb", 64, 64),
            ("conv0bc", 64, 32), ("conv0bd", 32, 32), ("conv0be", 32, 32),
@@ -277,33 +294,50 @@ class CVPMVSNet(nn.Module):
                                  hyp[:, slab.lo:slab.hi],
                                  "fused" if method == "rect" else method)
 
-    def regress(self, cost: torch.Tensor, hyp: torch.Tensor, slab=None):
-        """(prob [B, D, H, W] f32, depth [B, H, W] f32) of a cost volume;
+    def regress(self, cost: torch.Tensor, hyp: torch.Tensor, slab=None,
+                level: int | None = None, confidence: bool = False):
+        """(prob [B, D, H, W] f32, depth [B, H, W] f32) of a cost volume,
+        and with `confidence` the photometric confidence [B, H, W] third;
         with `slab`, the regularizer depth-partitioned and prob this rank's
-        slab."""
+        slab. `level` (k) puts the regularizer under the span
+        `.level<k>.regularize` and the rest under `.level<k>.regress`."""
+        name = SPAN if level is None else f"{SPAN}.level{level}"
         with depth_partitioned(self.cost_reg_refine,
                                None if slab is None else slab.axis,
                                hyp.shape[1]):
-            logits = self.cost_reg_refine(cost)
-        prob = softmax_depth(logits.float(), slab)
-        return prob, depth_regression(prob, hyp, slab)
+            with span(f"{name}.regularize"):
+                logits = self.cost_reg_refine(cost)
+        with span(f"{name}.regress"):
+            prob = softmax_depth(logits.float(), slab)
+            depth = depth_regression(prob, hyp, slab)
+            if not confidence:
+                return prob, depth
+            return prob, depth, photometric_confidence(prob.detach(), slab)
 
-    def _level(self, flevel, proj, hyp, method, slab=None):
-        """(prob, depth) of one level; with remat_levels in train mode, the
-        cost volume and regularizer are recomputed in the backward."""
+    def _level(self, level: int, last: bool, flevel, proj, hyp, method,
+               slab=None):
+        """(depth, confidence) of level `level` (1 the coarsest), the
+        confidence None but at the `last`; with remat_levels in train mode,
+        the cost volume and regularizer are recomputed in the backward."""
+        def run(proj, hyp, *flevel):
+            with span(f"{SPAN}.level{level}.sweep"):
+                cost = self.cost_volume(list(flevel), proj, hyp, method,
+                                        slab)
+            out = self.regress(cost, hyp, slab, level=level,
+                               confidence=last)
+            return out[1], out[2] if last else None
+
         if not (self.remat_levels and self.training):
-            return self.regress(self.cost_volume(flevel, proj, hyp, method,
-                                                 slab), hyp, slab)
+            return run(proj, hyp, *flevel)
         replay = []
 
-        def run(proj, hyp, *flevel):
+        def remat(proj, hyp, *flevel):
             ctx = (frozen_running_stats(self.cost_reg_refine) if replay
                    else contextlib.nullcontext())
             replay.append(True)
             with ctx:
-                return self.regress(self.cost_volume(list(flevel), proj, hyp,
-                                                     method, slab), hyp, slab)
-        return checkpoint(run, proj, hyp, *flevel, use_reentrant=False)
+                return run(proj, hyp, *flevel)
+        return checkpoint(remat, proj, hyp, *flevel, use_reentrant=False)
 
     def forward(self, imgs, K, R, t, depth_min, depth_max,
                 reference_frame: int = 0, nscale: int | None = None):
@@ -319,29 +353,31 @@ class CVPMVSNet(nn.Module):
         # image pyramid and per-level features, reference first; ratio: each
         # view's level height over its own full height (one pyramid per view
         # when the sizes differ, as the reference's per-view calls)
-        if ragged:
-            pyr = []
-            for i in order:
-                lv = [views[i]]
+        with span(f"{SPAN}.features"):
+            if ragged:
+                pyr = []
+                for i in order:
+                    lv = [views[i]]
+                    for _ in range(nscale - 1):
+                        lv.append(bilinear_half(lv[-1]))
+                    pyr.append(lv)
+                feats = [[self.featurePyramid(pyr[v][lvl]) for v in range(n)]
+                         for lvl in range(nscale)]
+                ratio = [[pyr[v][lvl].shape[1] / pyr[v][0].shape[1]
+                          for v in range(n)] for lvl in range(nscale)]
+            else:
+                stacked = (imgs if torch.is_tensor(imgs)
+                           else torch.stack(views, 1))
+                h, w, c = stacked.shape[2:]
+                level_imgs = [stacked.reshape(b * n, h, w, c)]
                 for _ in range(nscale - 1):
-                    lv.append(bilinear_half(lv[-1]))
-                pyr.append(lv)
-            feats = [[self.featurePyramid(pyr[v][lvl]) for v in range(n)]
-                     for lvl in range(nscale)]
-            ratio = [[pyr[v][lvl].shape[1] / pyr[v][0].shape[1]
-                      for v in range(n)] for lvl in range(nscale)]
-        else:
-            stacked = imgs if torch.is_tensor(imgs) else torch.stack(views, 1)
-            h, w, c = stacked.shape[2:]
-            level_imgs = [stacked.reshape(b * n, h, w, c)]
-            for _ in range(nscale - 1):
-                level_imgs.append(bilinear_half(level_imgs[-1]))
-            feats = []
-            for li in level_imgs:
-                f = self.featurePyramid(li)
-                f = f.reshape((b, n) + f.shape[1:])
-                feats.append([f[:, i] for i in order])
-            ratio = [[li.shape[1] / h] * n for li in level_imgs]
+                    level_imgs.append(bilinear_half(level_imgs[-1]))
+                feats = []
+                for li in level_imgs:
+                    f = self.featurePyramid(li)
+                    f = f.reshape((b, n) + f.shape[1:])
+                    feats.append([f[:, i] for i in order])
+                ratio = [[li.shape[1] / h] * n for li in level_imgs]
 
         Ko, Ro, to = (a[:, order].float() for a in (K, R, t))
 
@@ -352,31 +388,37 @@ class CVPMVSNet(nn.Module):
         method = self.resolve_sweep(feats[0][0].dtype, feats[0][0].device,
                                     ragged)
 
-        # coarsest level: a full fronto-parallel sweep
-        nhyp = 48 if self.training else 96
-        steps = torch.arange(nhyp, dtype=torch.float32, device=dmin.device)
-        hyp = dmin[:, None] + steps * ((dmax - dmin) / nhyp)[:, None]
-        proj = build_proj_matrices(level_K(nscale - 1), Ro, to)
+        # coarsest level (k = 1): a full fronto-parallel sweep
+        with span(f"{SPAN}.level1.hypotheses"):
+            nhyp = 48 if self.training else 96
+            steps = torch.arange(nhyp, dtype=torch.float32,
+                                 device=dmin.device)
+            hyp = dmin[:, None] + steps * ((dmax - dmin) / nhyp)[:, None]
+            proj = build_proj_matrices(level_K(nscale - 1), Ro, to)
         slab = depth_slab(nhyp, active_axis(self.hyp_axis))
-        prob, depth = self._level(feats[nscale - 1], proj, hyp, method, slab)
+        depth, conf = self._level(1, nscale == 1, feats[nscale - 1], proj,
+                                  hyp, method, slab)
         depth_est_list = [depth]
 
-        # refinement levels: +-4 hypotheses around the upsampled depth
+        # refinement levels (k = 2 .. nscale): +-4 hypotheses around the
+        # upsampled depth
         for k, level in enumerate(range(nscale - 2, -1, -1)):
-            depth_up = bicubic_double(depth)
-            Ks = level_K(level)
-            if self.training:
-                isz = (dmax - dmin) / 48.0 / (2.0 ** (k + 1))
-                offs = torch.arange(-4, 4, dtype=torch.float32,
-                                    device=dmin.device).reshape(1, 8, 1, 1)
-                hyp = depth_up[:, None] + offs * isz[:, None, None, None]
-            else:
-                hyp = cal_depth_hypo(depth_up, Ks[:, 0], Ks[:, 1], Ro[:, 0],
-                                     to[:, 0], Ro[:, 1], to[:, 1], dmin,
-                                     dmax)
-            proj = build_proj_matrices(Ks, Ro, to)
-            prob, depth = self._level(feats[level], proj, hyp, method)
-            slab = None                  # prob is whole from here on
+            with span(f"{SPAN}.level{k + 2}.hypotheses"):
+                depth_up = bicubic_double(depth)
+                Ks = level_K(level)
+                if self.training:
+                    isz = (dmax - dmin) / 48.0 / (2.0 ** (k + 1))
+                    offs = torch.arange(-4, 4, dtype=torch.float32,
+                                        device=dmin.device).reshape(
+                                            1, 8, 1, 1)
+                    hyp = depth_up[:, None] + offs * isz[:, None, None, None]
+                else:
+                    hyp = cal_depth_hypo(depth_up, Ks[:, 0], Ks[:, 1],
+                                         Ro[:, 0], to[:, 0], Ro[:, 1],
+                                         to[:, 1], dmin, dmax)
+                proj = build_proj_matrices(Ks, Ro, to)
+            depth, conf = self._level(k + 2, level == 0, feats[level], proj,
+                                      hyp, method)
             depth_est_list.append(depth)
 
         depth_est_list.reverse()                       # finest first
@@ -384,6 +426,5 @@ class CVPMVSNet(nn.Module):
             "depth": depth_est_list[0],
             "depth_est_list": depth_est_list,
             "depth_pair_list": [],
-            "photometric_confidence": photometric_confidence(prob.detach(),
-                                                             slab),
+            "photometric_confidence": conf,
         }
