@@ -166,6 +166,16 @@ JAX or of the JAX package. Phases, each of which stops the run if it fails:
      drive's shapes, every launch held to its plain version on its own
      inputs.
 
+Phase 1 also holds the regularizers' score head (`phase1_conv_head`,
+csrc/conv3d_head.cu) to its plain version at MVSNet's 1184x1600 head
+(D192 C8, with bias), Vis-MVSNet's stage 3 (592x800 D16 C8) and
+CVP-MVSNet's finest level (1184x1600 D8 C16, with bias), in bf16, and
+times it beside its bound and F.conv3d (cuDNN) as its yardstick. Its
+launches (`conv3d_head`, registered with sweep_kernels) are counted in
+every path like the sweep kernels': one a MVSNet request, 3n a Vis-MVSNet
+request of n views (`vis_heads`), one a CVP-MVSNet level, none in a step
+with grad or in a hyp-partitioned regularizer.
+
 Phase 1 also holds sweep_warp_backward to its plain version ([D], [D,H,W]
 and the behind-camera rig) and times it against torch's
 grid_sampler_2d_backward, beside its own count of its 16-byte atomics
@@ -225,6 +235,7 @@ from wildmvs_torch.geometry.projective import build_proj_matrices, scale_K
 from wildmvs_torch.infer import Predictor
 from wildmvs_torch.models import mvsnet as mvsnet_module
 from wildmvs_torch.models import vis_mvsnet as vis_module
+from wildmvs_torch.ops import conv_head
 from wildmvs_torch.ops import rect_sweep as rs
 from wildmvs_torch.ops import sweep_kernels as sk
 from wildmvs_torch.ops.plane_sweep import (homography_sweep_warp,
@@ -797,6 +808,67 @@ def phase1_channels(dev):
     torch.cuda.empty_cache()
 
 
+#: the score head's timed shapes [B, C, D, H, W] and bias: MVSNet's head at
+#: 1184x1600, Vis-MVSNet's stage 3 (its largest), CVP-MVSNet's finest level
+HEAD_SHAPES = {"mvsnet 1184x1600": ((1, 8, 192, 296, 400), True),
+               "vis stage 3": ((1, 8, 16, 592, 800), False),
+               "cvp finest": ((1, 16, 8, 1184, 1600), True)}
+
+
+def vis_heads(n: int) -> int:
+    """Score-head launches of one Vis-MVSNet request with n views: in each
+    of the three stages the n - 1 pairs' heads and the fused volume's."""
+    return 3 * n
+
+
+def phase1_conv_head(dev, results) -> dict:
+    """The score head's kernel against its plain version (compare's limit)
+    at HEAD_SHAPES in bf16, each timed by CUDA-graph replay beside its
+    bound, the plain version and F.conv3d (cuDNN, the library that ran it
+    before) on the same channels_last_3d input. Adds its entry to
+    `results`: the first shape's numbers and each shape's under "shapes"."""
+    shapes = {}
+    gen = torch.Generator(dev).manual_seed(21)
+    for name, (shape, has_bias) in HEAD_SHAPES.items():
+        c = shape[1]
+        x = torch.randn(shape, device=dev, generator=gen).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+        w = (torch.randn((1, c, 3, 3, 3), device=dev, generator=gen)
+             / (27 * c) ** 0.5).to(torch.bfloat16)
+        b = (torch.randn((1,), device=dev, generator=gen).to(torch.bfloat16)
+             if has_bias else None)
+        n0 = conv_head.conv3d_head.launches
+        got = conv_head.conv3d_head(x, w, b)
+        check(conv_head.conv3d_head.launches == n0 + 1, "head not launched")
+        err = compare(f"conv3d_head {name} {tuple(shape)}", got,
+                      conv_head.conv3d_head_plain(x, w, b))
+        check(torch.equal(got, conv_head.conv3d_head(x, w, b)),
+              f"conv3d_head {name}: two calls differ")
+        ms = graph_ms(lambda: conv_head.conv3d_head(x, w, b), reps=10)
+        plain_ms = cuda_ms(lambda: conv_head.conv3d_head_plain(x, w, b),
+                           reps=2, warmup=1)
+        library_ms = graph_ms(lambda: F.conv3d(x, w, b, padding=1), reps=5)
+        b_ms, b_by = conv_head.conv3d_head_bound(x, w, b)
+        shapes[name] = dict(shape=list(shape), max_abs_err=err, ms=ms,
+                            bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms,
+                            library_ms=library_ms)
+        print(f"phase1 conv3d_head {name}: ms {ms:.4f} bound_ms {b_ms:.4f} "
+              f"({b_by}, {100 * b_ms / ms:.1f} %) plain_ms {plain_ms:.3f} "
+              f"library_ms {library_ms:.4f} (F.conv3d, cuDNN)", flush=True)
+        del x, got
+    torch.cuda.empty_cache()
+    first = next(iter(shapes.values()))
+    results["conv3d_head"] = dict(
+        name="conv3d_head", route="cuda",
+        source="wildmvs_torch/csrc/conv3d_head.cu",
+        replaces="none (the JAX package leaves the convolution to XLA)",
+        **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+        max_abs_err=max(v["max_abs_err"] for v in shapes.values()),
+        shapes=shapes)
+    return results
+
+
 def sharpen(pred: Predictor) -> Predictor:
     """The predictor with its last conv (MVSNet's prob, CVP's prob0)
     scaled by PROB_GAIN."""
@@ -894,6 +966,8 @@ def phase2_serving():
     print(f"phase2 launches {json.dumps(counts)}", flush=True)
     check(counts["fused_cost_volume"] >= 3 and counts["sweep_warp"] >= 2,
           f"the main path skipped a kernel: {counts}")
+    check(counts["conv3d_head"] == len(scenes) + 1,
+          f"MVSNet serving did not take one head launch a request: {counts}")
     for out in outs + [out_warp]:
         check(out["depth"].shape == (HEADLINE["h"] // 4, HEADLINE["w"] // 4)
               and np.isfinite(out["depth"]).all()
@@ -1079,7 +1153,8 @@ def phase5_training(dev):
     print(f"phase5 launches {json.dumps(counts)}", flush=True)
     check(counts["sweep_warp"] == 2 * TRAIN_STEPS
           and counts["sweep_warp_backward"] == 2 * TRAIN_STEPS
-          and counts["fused_cost_volume"] == 0,
+          and counts["fused_cost_volume"] == 0
+          and counts["conv3d_head"] == 0,
           f"training did not take the warp kernels: {counts}")
     check(len(rec) == 2 and all("df" in e and "g" in e for e in rec),
           "the first step's warps were not recorded")
@@ -1510,8 +1585,10 @@ def phase6_vis_serving():
     peak = torch.cuda.max_memory_allocated()
     print(f"phase6 launches {json.dumps(counts)}", flush=True)
     check(counts == {"sweep_warp": 0, "sweep_warp_backward": 0,
-                     "fused_cost_volume": 0, "sweep_gwc": 12 * 4},
-          f"Vis serving did not take 12 gwc launches a request: {counts}")
+                     "fused_cost_volume": 0, "sweep_gwc": 12 * 4,
+                     "conv3d_head": vis_heads(5) * 4},
+          f"Vis serving did not take 12 gwc and {vis_heads(5)} head "
+          f"launches a request: {counts}")
     h2, w2 = EVAL["h"] // 2, EVAL["w"] // 2
     check(out["depth"].shape == (h2, w2)
           and out["confidence"].shape == (3, h2, w2)
@@ -1663,7 +1740,8 @@ def phase7_vis_training(dev):
     per_step = 3 * (HEADLINE["n"] - 1)
     check(counts == {"sweep_warp": per_step * TRAIN_STEPS,
                      "sweep_warp_backward": per_step * TRAIN_STEPS,
-                     "fused_cost_volume": 0, "sweep_gwc": 0},
+                     "fused_cost_volume": 0, "sweep_gwc": 0,
+                     "conv3d_head": 0},
           f"Vis training did not take the warp kernels: {counts}")
     check(len(rec) == per_step and all("df" in e and "g" in e for e in rec),
           "the first Vis step's warps were not recorded")
@@ -1830,9 +1908,9 @@ def phase8_cvp_serving(results):
     n_req = 2 * CVP_REQUESTS
     check(counts == {"sweep_warp": 0, "sweep_warp_backward": 0,
                      "fused_cost_volume": CVP_NSCALE * n_req,
-                     "sweep_gwc": 0},
-          f"CVP serving did not take {CVP_NSCALE} fused launches a request: "
-          f"{counts}")
+                     "sweep_gwc": 0, "conv3d_head": CVP_NSCALE * n_req},
+          f"CVP serving did not take {CVP_NSCALE} fused and head launches a "
+          f"request: {counts}")
     for out, cfg in zip(outs, [EVAL] * CVP_REQUESTS
                         + [HEADLINE] * CVP_REQUESTS):
         check(out["depth"].shape == out["confidence"].shape
@@ -1978,7 +2056,8 @@ def phase9_cvp_training(dev):
     per_step = state.model.nscale * (HEADLINE["n"] - 1)
     check(counts == {"sweep_warp": per_step * TRAIN_STEPS,
                      "sweep_warp_backward": per_step * TRAIN_STEPS,
-                     "fused_cost_volume": 0, "sweep_gwc": 0},
+                     "fused_cost_volume": 0, "sweep_gwc": 0,
+                     "conv3d_head": 0},
           f"CVP training did not take the warp kernels: {counts}")
     check(len(rec) == per_step and len(levels) == state.model.nscale
           and all("df" in e and "g" in e for e in rec),
@@ -2103,7 +2182,8 @@ def phase12_unsup_training(dev, supervised_peak_gib):
     per_step = n * (n - 1)
     check(counts == {"sweep_warp": per_step * TRAIN_STEPS,
                      "sweep_warp_backward": per_step * TRAIN_STEPS,
-                     "fused_cost_volume": 0, "sweep_gwc": 0},
+                     "fused_cost_volume": 0, "sweep_gwc": 0,
+                     "conv3d_head": 0},
           f"occlusion-masked MVSNet training did not take the warp "
           f"kernels: {counts}")
     check(len(rec) == per_step and all("df" in e and "g" in e for e in rec),
@@ -2143,7 +2223,8 @@ def phase12_unsup_training(dev, supervised_peak_gib):
             state, batch, cfg, UNSUP_STEPS, "phase12b")
         check(counts == {"sweep_warp": per * UNSUP_STEPS,
                          "sweep_warp_backward": per * UNSUP_STEPS,
-                         "fused_cost_volume": 0, "sweep_gwc": 0},
+                         "fused_cost_volume": 0, "sweep_gwc": 0,
+                         "conv3d_head": 0},
               f"unsupervised {arch} did not take the warp kernels: {counts}")
         name = f"{arch}_{'occ' if occ else 'unsup'}"
         results[name] = unsup_report(
@@ -2471,9 +2552,12 @@ def phase10_rect_serving():
     print(f"phase10 launches {json.dumps(counts)}", flush=True)
     check(counts == {"sweep_warp": 0, "sweep_warp_backward": 0,
                      "fused_cost_volume": CVP_NSCALE * CVP_REQUESTS,
-                     "sweep_gwc": 12 * 4},
-          f"rect serving did not take {CVP_NSCALE} fused launches a CVP "
-          f"request and 12 gwc launches a Vis request: {counts}")
+                     "sweep_gwc": 12 * 4,
+                     "conv3d_head": CVP_NSCALE * CVP_REQUESTS
+                     + vis_heads(5) * 4},
+          f"rect serving did not take {CVP_NSCALE} fused and head launches "
+          f"a CVP request and 12 gwc and {vis_heads(5)} head launches a Vis "
+          f"request: {counts}")
     for out in outs:
         check(out["depth"].shape == out["confidence"].shape
               == (EVAL["h"], EVAL["w"]) and np.isfinite(out["depth"]).all()
@@ -2675,8 +2759,9 @@ def phase11_reconstruction():
             if arch == "vis_mvsnet":
                 counts = c
                 check(c == {"sweep_warp": 0, "sweep_warp_backward": 0,
-                            "fused_cost_volume": 0, "sweep_gwc": 12 * ds.n},
-                      f"the pipeline's depthmaps skipped sweep_gwc: {c}")
+                            "fused_cost_volume": 0, "sweep_gwc": 12 * ds.n,
+                            "conv3d_head": vis_heads(5) * ds.n},
+                      f"the pipeline's depthmaps skipped a kernel: {c}")
             else:
                 check(sum(c.values()) == 0, f"the oracle launched {c}")
             m = res["metrics"]
@@ -3075,7 +3160,8 @@ def phase13_distribution(dev, single_step_ms):
     for r, res in enumerate(ranks_a):
         check(res["counts"] == {"sweep_warp": per_step,
                                 "sweep_warp_backward": per_step,
-                                "fused_cost_volume": 0, "sweep_gwc": 0},
+                                "fused_cost_volume": 0, "sweep_gwc": 0,
+                                "conv3d_head": 0},
               f"phase13a rank {r} launches {res['counts']}")
         total = {k: total[k] + res["counts"][k] for k in total}
         print(f"phase13a rank {r}: losses {[round(x, 6) for x in res['losses']]}"
@@ -3121,12 +3207,18 @@ def phase13_distribution(dev, single_step_ms):
     # would hand each rank
     gathered = NUM_DEPTH * (EVAL["h"] // 4) * (EVAL["w"] // 4) * 32 * 4
     out = {}
+    # heads: the hyp-partitioned regularizers run their own haloed
+    # F.conv3d (none); view-parallel Vis runs, in each of 2 requests and
+    # 3 stages, the heads of this rank's 2 pairs and of the fused volume;
+    # CVP's finer levels run unsharded
     for part, limit, want_c in (
             ("b", interval, {"fused_cost_volume": 2}),
-            ("c", interval3, {"sweep_gwc": 12}),
+            ("c", interval3, {"sweep_gwc": 12,
+                              "conv3d_head": 2 * 3 * (2 + 1)}),
             ("f_vis", interval3, {"sweep_gwc": 24}),
             ("f_cvp", ref["f_cvp_ref"]["levels"][-1][1],
-             {"fused_cost_volume": 2 * CVP_NSCALE})):
+             {"fused_cost_volume": 2 * CVP_NSCALE,
+              "conv3d_head": 2 * (CVP_NSCALE - 1)})):
         phase = f"phase13{part[0]}" + (f" {part[2:]}" if part[1:] else "")
         want_d = ref[f"{part}_ref"]["depth"]
         for r, res in enumerate(ranks_b):
@@ -3433,8 +3525,9 @@ def phase14_classic_and_tools(dev):
         full = depthmap_eval.evaluate(ds, model)
         torch.cuda.synchronize()
         eval_counts = sk.launch_counts()
-        check(eval_counts["sweep_gwc"] == 12 * ds.n,
-              f"evaluate skipped sweep_gwc: {eval_counts}")
+        check(eval_counts["sweep_gwc"] == 12 * ds.n
+              and eval_counts["conv3d_head"] == vis_heads(ds.n) * ds.n,
+              f"evaluate skipped a kernel: {eval_counts}")
         rel = abs(full["EPE"] - want["EPE"]) / want["EPE"]
         check(full["count"] == ds.n and rel <= EVAL_EPE_REL,
               f"evaluate {full} against the npz {want}")
@@ -3702,16 +3795,21 @@ def phase15_native(clouds, step_ms: float) -> dict:
 #: CVP's every level, rect canvases included; one gwc launch a Vis pair and
 #: stage)
 BENCH_LAUNCHES = {
-    "headline": {"fused_cost_volume": 1},
-    "vis_mvsnet_maps_s": {"sweep_gwc": 6},
-    "cvp_mvsnet_maps_s": {"fused_cost_volume": 5},
-    "mvsnet_train_dtugeo_maps_s": {"fused_cost_volume": 1},
-    "mvsnet_eval_1184x1600_N5_maps_s": {"fused_cost_volume": 1},
-    "mvsnet_eval_1184x1600_N5_rect_maps_s": {"fused_cost_volume": 1},
-    "vis_eval_1184x1600_N5_maps_s": {"sweep_gwc": 12},
-    "vis_eval_1184x1600_N5_trained_maps_s": {"sweep_gwc": 12},
-    "cvp_eval_1184x1600_N5_maps_s": {"fused_cost_volume": 5},
-    "cvp_eval_1184x1600_N5_rect_maps_s": {"fused_cost_volume": 5}}
+    "headline": {"fused_cost_volume": 1, "conv3d_head": 1},
+    "vis_mvsnet_maps_s": {"sweep_gwc": 6, "conv3d_head": 9},
+    "cvp_mvsnet_maps_s": {"fused_cost_volume": 5, "conv3d_head": 5},
+    "mvsnet_train_dtugeo_maps_s": {"fused_cost_volume": 1, "conv3d_head": 1},
+    "mvsnet_eval_1184x1600_N5_maps_s": {"fused_cost_volume": 1,
+                                        "conv3d_head": 1},
+    "mvsnet_eval_1184x1600_N5_rect_maps_s": {"fused_cost_volume": 1,
+                                             "conv3d_head": 1},
+    "vis_eval_1184x1600_N5_maps_s": {"sweep_gwc": 12, "conv3d_head": 15},
+    "vis_eval_1184x1600_N5_trained_maps_s": {"sweep_gwc": 12,
+                                             "conv3d_head": 15},
+    "cvp_eval_1184x1600_N5_maps_s": {"fused_cost_volume": 5,
+                                     "conv3d_head": 5},
+    "cvp_eval_1184x1600_N5_rect_maps_s": {"fused_cost_volume": 5,
+                                          "conv3d_head": 5}}
 BENCH_INFO = ("spread_pct", "median_ms", "bytes_gb", "tflops", "kernel_tops",
               "roofline_ms", "roofline_frac", "mfu_pct", "kernel_pct",
               "launches", "peak_gib", "finite_share")
@@ -3956,7 +4054,8 @@ def phase17b_trained_nets(dev):
         loss = m["train_loss"].item()
         steps = {k: v - n0[k] for k, v in sk.launch_counts().items()}
         check(np.isfinite(loss) and steps["sweep_warp"] > 0
-              and steps["sweep_warp"] == steps["sweep_warp_backward"],
+              and steps["sweep_warp"] == steps["sweep_warp_backward"]
+              and steps["conv3d_head"] == 0,
               f"phase17b {arch}: the training step launched {steps}, "
               f"loss {loss}")
         print(f"phase17b {arch}: eval launches {evals}; train step loss "
@@ -4012,6 +4111,7 @@ def main() -> int:
     kernels = phase1_rect_kernels(dev, phase1_vis_kernels(
         dev, phase1_kernels(dev)))
     phase1_channels(dev)
+    phase1_conv_head(dev, kernels)
     kernels["sweep_warp"]["replaces"] = \
         "wildmvs/ops/mosaic_sweep.py:143 and :298"
     pred, counts, serving = phase2_serving()
@@ -4088,7 +4188,7 @@ def main() -> int:
             "ms", "events_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "staged_share", "launches_by_path"]
     extra = ["device_atomics", "softmin_ms", "views", "vis", "stage1",
-             "stage2", "cvp", "rect"]
+             "stage2", "cvp", "rect", "shapes"]
     for k in kernels.values():
         k.setdefault("staged_share", None)      # kernels without footprints
     print(json.dumps({"kernels": [{k: v[k] for k in keys + extra if k in v}

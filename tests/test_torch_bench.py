@@ -220,7 +220,8 @@ def test_on_launch_nests_and_the_cpu_launches_nothing():
 
 def wrapper_inputs():
     """Each kernel's inputs in the order its wrapper hands them to an
-    `on_launch` hook (sweep_kernels.py), on a small seeded rig."""
+    `on_launch` hook (sweep_kernels.py, ops/conv_head.py), on a small
+    seeded rig."""
     rng = np.random.default_rng(2)
     bf = lambda *s: torch.from_numpy(  # noqa: E731
         rng.standard_normal(s, np.float32)).to(torch.bfloat16)
@@ -235,7 +236,10 @@ def wrapper_inputs():
             "sweep_warp_backward": (g, P1, Q1, s, (7, 9), *vis),
             "sweep_gwc": (src, ref, P1, Q1, s, *vis, sk.GWC_GROUPS),
             "fused_cost_volume": (ref, srcs, P, Q, s, torch.zeros(1),
-                                  "variance")}
+                                  "variance"),
+            "conv3d_head": (bf(1, 8, 4, 6, 8).contiguous(
+                memory_format=torch.channels_last_3d), bf(1, 8, 3, 3, 3),
+                None)}
 
 
 @pytest.mark.parametrize("name", sorted(sk.KERNELS))

@@ -272,7 +272,7 @@ def test_backward_wrapper_checks_and_counts_nothing_on_the_cpu():
     g = torch.zeros((1, 4, H, W, C), dtype=torch.bfloat16)
     before = sk.launch_counts()
     assert set(before) == {"sweep_warp", "sweep_warp_backward",
-                           "fused_cost_volume", "sweep_gwc"}
+                           "fused_cost_volume", "sweep_gwc", "conv3d_head"}
     df = sk.sweep_warp_backward(g, P, Q, s, (5, 7))
     assert df.shape == (1, 5, 7, C) and df.dtype == torch.bfloat16
     assert sk.launch_counts() == before

@@ -468,7 +468,7 @@ def test_gwc_wrapper_checks_and_counts_nothing_on_the_cpu():
                                            (VH, VW), (VH, VW))
     before = sk.launch_counts()
     assert set(before) == {"sweep_warp", "sweep_warp_backward",
-                           "fused_cost_volume", "sweep_gwc"}
+                           "fused_cost_volume", "sweep_gwc", "conv3d_head"}
     out = sk.sweep_gwc(src, src, P, Q, s, scale, clamp)
     assert out.shape == (1, VD, VH, VW, G) and sk.launch_counts() == before
     with pytest.raises(ValueError, match="groups"):

@@ -36,6 +36,7 @@ SIGNATURES = {
     "wm_sweep_warp_backward": [_P] * 6 + [_I] * 9 + [_F] * 6 + [_P],
     "wm_fused_cost_volume": [_P] * 8 + [_I] * 12 + [_P],
     "wm_sweep_gwc": [_P] * 7 + [_I] * 10 + [_F] * 6 + [_P],
+    "wm_conv3d_head": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 _lib = None

@@ -72,8 +72,6 @@ from .device import resolve_device
 from .ops import sweep_kernels as sk
 from .utils.cost import CostCounter
 
-#: the H100 SXM's published dense bf16 peak (NVIDIA's data sheet, 700 W)
-BF16_FLOPS = 989e12
 HEADLINE = "mvsnet_depthmap_inference_512x640_D192_N3"
 VIS_ASSET = Path(__file__).resolve().parents[1] / "assets" / \
     "vis_synth_trained.npz"
@@ -271,7 +269,8 @@ def time_model(model, args, kwargs, iters: int, repeats: int = 3,
         roof_s = cost.bytes / sk.HBM_BYTES_PER_S
         info["roofline_ms"] = roof_s * 1e3
         info["roofline_frac"] = roof_s / (best / iters)
-        info["mfu_pct"] = 100.0 * cost.flops / (best / iters) / BF16_FLOPS
+        info["mfu_pct"] = 100.0 * cost.flops / (best / iters) / \
+            sk.BF16_FLOPS
         info["kernel_pct"] = 100.0 * cost.kernel_operations / (
             best / iters) / sk.F32_FLOPS
     canvases = sorted({f"{w.grid_hw[0]}x{w.grid_hw[1]}"

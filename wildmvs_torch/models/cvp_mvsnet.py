@@ -83,8 +83,8 @@ from torch.utils.checkpoint import checkpoint
 from ..dist.depth_parallel import depth_partitioned
 from ..dist.mesh import active_axis, depth_slab
 from ..geometry.projective import build_proj_matrices, scale_K
-from ..nn.blocks import (ConvBnReLU, ConvTransposeBnReLU, cast_convs,
-                         frozen_running_stats, init_weights)
+from ..nn.blocks import (ConvBnReLU, ConvTransposeBnReLU, ScoreConv3d,
+                         cast_convs, frozen_running_stats, init_weights)
 from ..ops.resize import bicubic_double, bilinear_half
 from ..ops.select import masked_median
 from ..ops.volumes import (depth_regression, photometric_confidence,
@@ -138,7 +138,7 @@ class CVPCostRegNet(nn.Module):
         self.conv4a = ConvBnReLU(64, 64, dim=3)
         self.conv5 = ConvTransposeBnReLU(64, 32, 3, 1, 1, 0)
         self.conv6 = ConvTransposeBnReLU(32, 16, 3, 2, 1, 1)
-        self.prob0 = nn.Conv3d(16, 1, 3, 1, 1, bias=True)
+        self.prob0 = ScoreConv3d(16, bias=True)
 
     def forward(self, x):
         x = x.permute(0, 4, 1, 2, 3).to(self.dtype)

@@ -69,8 +69,8 @@ from torch import nn
 from ..dist.depth_parallel import depth_partitioned
 from ..dist.mesh import active_axis, depth_slab
 from ..geometry.projective import build_proj_matrices, scale_K
-from ..nn.blocks import (ConvBnReLU, ConvTransposeBnReLU, cast_convs,
-                         init_weights)
+from ..nn.blocks import (ConvBnReLU, ConvTransposeBnReLU, ScoreConv3d,
+                         cast_convs, init_weights)
 from ..ops.plane_sweep import plane_sweep_warp
 from ..ops.rect_sweep import exact_fused_volume, rect_cost_volume
 from ..ops.sweep_kernels import mvsnet_planes, sweep_warp
@@ -180,7 +180,7 @@ class CostRegNet(nn.Module):
         self.conv7 = ConvTransposeBnReLU(64, 32)
         self.conv9 = ConvTransposeBnReLU(32, 16)
         self.conv11 = ConvTransposeBnReLU(16, 8)
-        self.prob = nn.Conv3d(8, 1, 3, 1, 1, bias=True)
+        self.prob = ScoreConv3d(8, bias=True)
 
     def forward(self, x):
         # [B, D, H, W, C] memory seen as NCDHW is channels_last_3d

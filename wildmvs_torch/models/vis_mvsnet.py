@@ -108,7 +108,7 @@ from ..dist.depth_parallel import depth_partitioned
 from ..dist.mesh import active_axis, all_reduce, gather_slabs, my_slab
 from ..geometry.projective import scale_K
 from ..losses.supervised import resize_bilinear
-from ..nn.blocks import UNet, cast_convs, init_weights
+from ..nn.blocks import ScoreConv3d, UNet, cast_convs, init_weights
 from ..ops.plane_sweep import homography_sweep_warp
 from ..ops.rect_sweep import exact_gwc_volume, rect_gwc_volume
 from ..ops.sweep_kernels import GWC_GROUPS, sweep_warp, vis_planes, vis_svals
@@ -187,7 +187,7 @@ class RegPair(_Net):
 
     def __init__(self, dtype=torch.float32):
         super().__init__(dtype)
-        self.final_conv = nn.Conv3d(8, 1, 3, 1, 1, bias=False)
+        self.final_conv = ScoreConv3d(8, bias=False)
 
     def forward(self, x):
         return self.run(x, self.final_conv, self.final_conv.weight)
@@ -200,7 +200,7 @@ class RegFuse(_Net):
     def __init__(self, dtype=torch.float32):
         super().__init__(dtype)
         self.unet = UNet(8, 1, 0, (8, 16), "reg2", 4, dim=3)
-        self.final_conv = nn.Conv3d(8, 1, 3, 1, 1, bias=False)
+        self.final_conv = ScoreConv3d(8, bias=False)
 
     def forward(self, x):
         return self.run(x, lambda v: self.final_conv(self.unet(v)),

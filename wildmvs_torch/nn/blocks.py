@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from ..dist.mesh import all_reduce_sum
+from ..ops.conv_head import conv3d_head
 
 CONVS = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d)
 _CONV = {2: nn.Conv2d, 3: nn.Conv3d}
@@ -49,6 +50,30 @@ class ConvBnReLU(nn.Module):
 
     def forward(self, x):
         return torch.relu(self.bn(self.conv(x)))
+
+
+class ScoreConv3d(nn.Conv3d):
+    """The 3x3x3, stride-1, pad-1 convolution to one channel that ends a 3D
+    regularizer (MVSNet `prob`, Vis-MVSNet `final_conv`, CVP-MVSNet
+    `prob0`). On a CUDA tensor, when autograd records nothing, it runs the
+    port's kernel (ops/conv_head.conv3d_head) in the compute dtype: under
+    autocast the input, weight and bias are cast to autocast's dtype, as it
+    casts them for nn.Conv3d. Otherwise nn.Conv3d's forward."""
+
+    def __init__(self, in_channels: int, bias: bool):
+        super().__init__(in_channels, 1, 3, 1, 1, bias=bias)
+
+    def forward(self, x):
+        params = (self.weight,) if self.bias is None else (self.weight,
+                                                           self.bias)
+        if not x.is_cuda or (torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, *params))):
+            return super().forward(x)
+        if torch.is_autocast_enabled("cuda"):
+            dtype = torch.get_autocast_dtype("cuda")
+            x, params = x.to(dtype), tuple(t.to(dtype) for t in params)
+        x = x.contiguous(memory_format=torch.channels_last_3d)
+        return conv3d_head(x, *params)
 
 
 class ConvTransposeBnReLU(nn.Sequential):

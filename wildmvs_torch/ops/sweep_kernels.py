@@ -110,7 +110,9 @@ live samples) and `bound` turns that into the least time at the H100's
 peaks: chip_smoke.py's kernel bounds read them. Inside `on_launch(hook)`
 each launch calls hook(kernel name, inputs, output), its inputs in the
 order of its plain version and of its `*_work` (utils/cost.CostCounter
-counts the launches' work by them).
+counts the launches' work by them). `KERNELS`, `PLAIN` and `WORK` hold
+every kernel of the port by name; the kernels of other ops modules join
+them through `register` (ops/conv_head).
 """
 from __future__ import annotations
 
@@ -371,9 +373,11 @@ def fused_cost_volume_plain(ref, srcs, P, Q, s, temp=None,
 # ---------------------------------------------------------------------------
 
 #: the H100 SXM's published peaks (NVIDIA's data sheet, at a 700 W limit):
-#: HBM3 bytes a second and f32 operations a second outside the tensor cores
+#: HBM3 bytes a second, f32 operations a second outside the tensor cores,
+#: and dense bf16 tensor-core operations a second (f32 accumulation)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 
 class KernelWork(NamedTuple):
@@ -402,11 +406,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(work: KernelWork):
+def bound(work: KernelWork, flops: float = F32_FLOPS):
     """(bound_ms, bound_by) of a launch: the larger of its bytes' time at
-    HBM_BYTES_PER_S and its operations' at F32_FLOPS."""
+    HBM_BYTES_PER_S and its operations' at `flops` a second."""
     t_bytes = work.bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = work.operations / F32_FLOPS * 1e3
+    t_ops = work.operations / flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -985,7 +989,8 @@ def fused_cost_volume(ref: torch.Tensor, srcs: torch.Tensor, P: torch.Tensor,
 
 fused_cost_volume.launches = 0
 
-#: every kernel wrapper of the port, by kernel name
+#: every kernel wrapper of the port, by kernel name (the wrappers of other
+#: ops modules join through `register`)
 KERNELS = {"sweep_warp": sweep_warp,
            "sweep_warp_backward": sweep_warp_backward,
            "fused_cost_volume": fused_cost_volume,
@@ -998,6 +1003,18 @@ PLAIN = {"sweep_warp": sweep_warp_plain,
          "sweep_gwc": sweep_gwc_plain}
 WORK = {"sweep_warp": warp_work, "sweep_warp_backward": warp_backward_work,
         "fused_cost_volume": fused_work, "sweep_gwc": gwc_work}
+
+
+def register(name: str, wrapper, plain, work) -> None:
+    """Add the kernel wrapper of another ops module to KERNELS, PLAIN and
+    WORK, so that the launch counts and `on_launch` hooks cover it."""
+    KERNELS[name], PLAIN[name], WORK[name] = wrapper, plain, work
+
+
+def launched(name: str, inputs, out) -> None:
+    """Hand one launch of a registered kernel to the `on_launch` hook."""
+    if _launch_hook is not None:
+        _launch_hook(name, inputs, out)
 
 
 def reset_launch_counts() -> None:

@@ -16,8 +16,10 @@ the forward dispatches:
           minimum: an intermediate is written by one op and read by the
           next, and the L2 cache may serve either. View ops and allocations
           (`empty`, `empty_strided`) move nothing and count none.
-  kernels each launch of a port kernel (ops/sweep_kernels.py) is a ctypes
-          call that no dispatch mode sees: its wrapper hands its inputs
+  kernels each launch of a port kernel (`sweep_kernels.KERNELS`: the
+          sweep kernels and the score head of ops/conv_head, whose
+          convolution flops are counted here and not as aten flops) is a
+          ctypes call that no dispatch mode sees: its wrapper hands its inputs
           to an `on_launch` hook, and the bytes and f32 operations of the
           launch are counted on them (`sweep_kernels.WORK`, the rule of the
           kernels' bounds). The bytes are added to the aten bytes; the
