@@ -207,27 +207,28 @@ MAIN_SHAPES = [(1, 8, 192, 296, 400), (1, 8, 192, 128, 160),
 
 
 @pytest.mark.parametrize("table,want", [
-    ("KERNELS", ch.conv3d_head), ("PLAIN", ch.conv3d_head_plain),
-    ("WORK", ch.conv3d_head_work)])
+    ("KERNELS", ch.conv3d_head), ("PLAIN", ch.conv3d_head_plain)])
 def test_registered_with_the_launch_machinery(table, want):
-    """The head is one of the port's kernels: its wrapper, plain version
-    and work sit beside the sweep kernels', so launch counts and
-    `on_launch` hooks (chip_smoke's checks, CostCounter) cover it."""
+    """The head is one of the port's kernels: its wrapper and plain
+    version sit beside the sweep kernels', so launch counts and
+    `on_launch` hooks (chip_smoke's checks) cover it."""
     assert getattr(sk, table)["conv3d_head"] is want
 
 
-def test_launch_counts_cover_the_head():
-    """reset_launch_counts zeroes the head's count and launch_counts reads
-    it, as for every kernel."""
-    saved = ch.conv3d_head.launches
+@pytest.mark.parametrize("name", sorted(sk.KERNELS))
+def test_launch_counts_cover_every_kernel(name):
+    """launch_counts reads each kernel's count, the head's among them, and
+    reset_launch_counts zeroes it."""
+    wrapper = sk.KERNELS[name]
+    saved = wrapper.launches
     try:
-        ch.conv3d_head.launches = 3
-        assert sk.launch_counts()["conv3d_head"] == 3
+        wrapper.launches = 3
+        assert sk.launch_counts()[name] == 3
         sk.reset_launch_counts()
-        assert ch.conv3d_head.launches == 0
-        assert sk.launch_counts()["conv3d_head"] == 0
+        assert wrapper.launches == 0
+        assert sk.launch_counts()[name] == 0
     finally:
-        ch.conv3d_head.launches = saved
+        wrapper.launches = saved
 
 
 def test_work_counts_the_bound():

@@ -382,6 +382,6 @@ def test_port_imports_neither_jax_nor_wildmvs():
             "wildmvs_torch.train.orbax_read", "wildmvs_torch.cpp",
             "wildmvs_torch.geometry.projective",
             "wildmvs_torch.pipeline.metrics3d", "wildmvs_torch.bench",
-            "wildmvs_torch.utils.cost", "wildmvs_torch.tools",
+            "wildmvs_torch.tools",
             "wildmvs_torch.tools.e2e_quality",
             "wildmvs_torch.tools.fusion_sensitivity"} <= names

@@ -31,27 +31,19 @@ eager forwards after one warm-up chain (host clock, each chain ending in a
 device sync), as bench.py's `time_model`;
   spread_pct     (slowest - best) / best of the chains, %
   median_ms      the median chain's ms per forward
-  bytes_gb, tflops, kernel_tops  a forward's bytes (aten ops and kernels),
-                 aten flops (the bf16 convolutions) and the kernels' f32
-                 operations, by `utils.cost.CostCounter` over one extra,
-                 untimed forward (the eager counterpart of XLA's
-                 cost_analysis, whose flops count both kinds as one)
-  roofline_ms, roofline_frac  bytes_gb at the H100's 3.35 TB/s, and that
-                 time over the measured one (eager per-op bytes may be
-                 served by the L2 cache, so the fraction may pass 1)
-  mfu_pct        tflops at the H100's 989 TFLOP/s dense bf16
-  kernel_pct     kernel_tops at the H100's 67 TFLOP/s f32 (CUDA cores)
   launches       the port's kernel launches per forward, by kernel
   peak_gib       max_memory_allocated over the field's forwards
-  finite_share   the share of finite depth pixels of the counted forward
-Only on the card: roofline_*, mfu_pct, kernel_pct and peak_gib (device
-figures) and `card`, the nvidia-smi name and power limit.
+  finite_share   the share of finite depth pixels of one more, untimed
+                 forward
+Only on the card: peak_gib (a device figure) and `card`, the nvidia-smi
+name and power limit.
 
 Unlike bench.py: no `vs_baseline` (its denominators are a torch-CPU figure
 scaled by a measured CPU-to-TPU ratio; no TPU figure is the port's
-target), the H100's published peaks in place of the v5e's, no compilation
-cache (nothing is compiled ahead), and the added launches, peak_gib,
-median_ms, finite_share, card, torch and cuda fields.
+target), no cost fields (the benchmark, mvsbench, reads a cell's MFU and
+kernel rooflines on the card), no compilation cache (nothing is compiled
+ahead), and the added launches, peak_gib, median_ms, finite_share, card,
+torch and cuda fields.
 """
 from __future__ import annotations
 
@@ -70,7 +62,6 @@ import torch
 
 from .device import resolve_device
 from .ops import sweep_kernels as sk
-from .utils.cost import CostCounter
 
 HEADLINE = "mvsnet_depthmap_inference_512x640_D192_N3"
 VIS_ASSET = Path(__file__).resolve().parents[1] / "assets" / \
@@ -223,8 +214,7 @@ def time_model(model, args, kwargs, iters: int, repeats: int = 3,
     A chain is `iters` eager forwards under inference_mode, each adding its
     depth's sum to a device scalar, ending in a device sync, timed by the
     host clock; one warm-up chain first. `info` (optional) receives the
-    module docstring's diagnostics, the cost from one more forward under
-    CostCounter.
+    module docstring's diagnostics, finite_share from one more forward.
     """
     if smoke:
         iters, repeats = 1, 1
@@ -258,27 +248,9 @@ def time_model(model, args, kwargs, iters: int, repeats: int = 3,
                         for k, v in launches.items()}
     if device.type == "cuda":
         info["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
-    with torch.inference_mode(), CostCounter() as cost:
+    with torch.inference_mode():
         depth = model(*args, **kwargs)["depth"]
-    _sync(device)
     info["finite_share"] = torch.isfinite(depth).float().mean().item()
-    info["bytes_gb"] = cost.bytes / 1e9
-    info["tflops"] = cost.flops / 1e12
-    info["kernel_tops"] = cost.kernel_operations / 1e12
-    if device.type == "cuda":
-        roof_s = cost.bytes / sk.HBM_BYTES_PER_S
-        info["roofline_ms"] = roof_s * 1e3
-        info["roofline_frac"] = roof_s / (best / iters)
-        info["mfu_pct"] = 100.0 * cost.flops / (best / iters) / \
-            sk.BF16_FLOPS
-        info["kernel_pct"] = 100.0 * cost.kernel_operations / (
-            best / iters) / sk.F32_FLOPS
-    canvases = sorted({f"{w.grid_hw[0]}x{w.grid_hw[1]}"
-                       for name, w in cost.kernels
-                       if name == "fused_cost_volume"
-                       and w.src_hw != w.grid_hw})
-    if canvases:
-        info["rect_grids"] = canvases
     return best / iters
 
 
@@ -350,9 +322,7 @@ def main(argv=None) -> int:
             record[field.key] = run(field, info)
             record.update({f"{field.key}_{k}": v for k, v in info.items()})
             note(f"bench: {field.key} = {record[field.key]:.3f}, launches "
-                 f"{info['launches']}" + (
-                     f", fused on rect canvases at {info['rect_grids']}"
-                     if "rect_grids" in info else ""))
+                 f"{info['launches']}")
         except Exception as e:       # one field's failure keeps the others
             record[f"{field.key}_error"] = f"{type(e).__name__}: {e}"[:200]
             note(f"bench: {field.key} failed: {record[field.key + '_error']}")

@@ -46,7 +46,7 @@ def conv3d_head_work(x: torch.Tensor, weight: torch.Tensor,
     voxels = b * d * h * w
     params = (weight,) if bias is None else (weight, bias)
     return sk.KernelWork(sk.nbytes(x, *params) + voxels * x.element_size(),
-                         voxels * (54 * c + 1), voxels, (h, w), (h, w))
+                         voxels * (54 * c + 1), voxels)
 
 
 def conv3d_head_bound(x: torch.Tensor, weight: torch.Tensor,
@@ -137,4 +137,4 @@ def conv3d_head(x: torch.Tensor, weight: torch.Tensor,
 
 
 conv3d_head.launches = 0
-sk.register("conv3d_head", conv3d_head, conv3d_head_plain, conv3d_head_work)
+sk.register("conv3d_head", conv3d_head, conv3d_head_plain)

@@ -109,10 +109,9 @@ one launch must do on its inputs (bytes in and out, operations from the
 live samples) and `bound` turns that into the least time at the H100's
 peaks: chip_smoke.py's kernel bounds read them. Inside `on_launch(hook)`
 each launch calls hook(kernel name, inputs, output), its inputs in the
-order of its plain version and of its `*_work` (utils/cost.CostCounter
-counts the launches' work by them). `KERNELS`, `PLAIN` and `WORK` hold
-every kernel of the port by name; the kernels of other ops modules join
-them through `register` (ops/conv_head).
+order of its plain version (chip_smoke.py holds each launch to it).
+`KERNELS` and `PLAIN` hold every kernel of the port by name; the kernels
+of other ops modules join them through `register` (ops/conv_head).
 """
 from __future__ import annotations
 
@@ -383,13 +382,10 @@ BF16_FLOPS = 989e12
 class KernelWork(NamedTuple):
     """What one launch must do on its inputs: `bytes` (each input read
     once, the output written once), `operations` (f32, counted from the
-    live samples), `live_samples`, and the (h, w) of its source maps and
-    (H, W) of its reference grid."""
+    live samples) and `live_samples`."""
     bytes: int
     operations: int
     live_samples: int
-    src_hw: tuple
-    grid_hw: tuple
 
 
 def live_samples(P, Q, s, h: int, w: int, scale=UNIT_SCALE,
@@ -423,7 +419,7 @@ def warp_work(src, P, Q, s, scale=UNIT_SCALE, clamp=None) -> KernelWork:
     n = b * s.shape[1] * H * W
     live = live_samples(P, Q, s, h, w, scale, clamp)
     return KernelWork(nbytes(src, P, Q, s) + n * c * 2, live * c * 8 + n * 20,
-                      live, (h, w), (H, W))
+                      live)
 
 
 def warp_backward_work(g, P, Q, s, src_hw, scale=UNIT_SCALE,
@@ -434,8 +430,7 @@ def warp_backward_work(g, P, Q, s, src_hw, scale=UNIT_SCALE,
     h, w = src_hw
     live = live_samples(P, Q, s, h, w, scale, clamp)
     return KernelWork(nbytes(g, P, Q, s) + b * h * w * c * 4,
-                      live * c * 8 + b * D * H * W * 20, live, (h, w),
-                      (H, W))
+                      live * c * 8 + b * D * H * W * 20, live)
 
 
 def gwc_work(src, ref, P, Q, s, scale=UNIT_SCALE, clamp=None,
@@ -447,22 +442,20 @@ def gwc_work(src, ref, P, Q, s, scale=UNIT_SCALE, clamp=None,
     n = b * s.shape[1] * H * W
     live = live_samples(P, Q, s, h, w, scale, clamp)
     return KernelWork(nbytes(src, ref, P, Q, s) + n * groups * 2,
-                      live * c * 10 + n * 20, live, (h, w), (H, W))
+                      live * c * 10 + n * 20, live)
 
 
-def fused_work(ref, srcs, P, Q, s, temp=None,
-               agg: str = "variance") -> KernelWork:
+def fused_work(ref, srcs, P, Q, s) -> KernelWork:
     """One `fused_cost_volume` launch: each view's warp (8 a live sample
     and channel, 20 a sample), the combine (3 a view and channel, 4 a
-    channel, the variance's: `temp` and `agg` do not change the count);
-    writes the bf16 volume."""
+    channel, the variance's; softmin's is counted as the same); writes
+    the bf16 volume."""
     b, nv, h, w, c = srcs.shape
     H, W = P.shape[-2:]
     n = b * s.shape[1] * H * W
     live = sum(live_samples(P[:, v], Q[:, v], s, h, w) for v in range(nv))
     return KernelWork(nbytes(ref, srcs, P, Q, s) + n * c * 2,
-                      live * c * 8 + nv * n * 20 + n * c * (nv * 3 + 4),
-                      live, (h, w), (H, W))
+                      live * c * 8 + nv * n * 20 + n * c * (nv * 3 + 4), live)
 
 
 _launch_hook = None
@@ -472,9 +465,9 @@ _launch_hook = None
 def on_launch(hook):
     """Within the block, each kernel launch calls hook(kernel name,
     inputs, output) after it is queued: `inputs` are its arguments in the
-    order of its plain version (`sweep_warp_plain`, ...) and of its
-    `*_work`; `output` is what the plain version returns (the backward's
-    f32 accumulation). The previous hook is restored on exit."""
+    order of its plain version (`sweep_warp_plain`, ...); `output` is what
+    the plain version returns (the backward's f32 accumulation). The
+    previous hook is restored on exit."""
     global _launch_hook
     saved, _launch_hook = _launch_hook, hook
     try:
@@ -995,20 +988,18 @@ KERNELS = {"sweep_warp": sweep_warp,
            "sweep_warp_backward": sweep_warp_backward,
            "fused_cost_volume": fused_cost_volume,
            "sweep_gwc": sweep_gwc}
-#: each kernel's plain version and the count of its work, by kernel name;
-#: both take the inputs that an `on_launch` hook receives
+#: each kernel's plain version, by kernel name; it takes the inputs that
+#: an `on_launch` hook receives
 PLAIN = {"sweep_warp": sweep_warp_plain,
          "sweep_warp_backward": sweep_warp_backward_plain,
          "fused_cost_volume": fused_cost_volume_plain,
          "sweep_gwc": sweep_gwc_plain}
-WORK = {"sweep_warp": warp_work, "sweep_warp_backward": warp_backward_work,
-        "fused_cost_volume": fused_work, "sweep_gwc": gwc_work}
 
 
-def register(name: str, wrapper, plain, work) -> None:
-    """Add the kernel wrapper of another ops module to KERNELS, PLAIN and
-    WORK, so that the launch counts and `on_launch` hooks cover it."""
-    KERNELS[name], PLAIN[name], WORK[name] = wrapper, plain, work
+def register(name: str, wrapper, plain) -> None:
+    """Add the kernel wrapper of another ops module to KERNELS and PLAIN,
+    so that the launch counts and `on_launch` hooks cover it."""
+    KERNELS[name], PLAIN[name] = wrapper, plain
 
 
 def launched(name: str, inputs, out) -> None:
