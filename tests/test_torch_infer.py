@@ -16,7 +16,8 @@ from wildmvs.infer import Predictor as JaxPredictor
 from wildmvs.models.mvsnet import MVSNet as JaxMVSNet
 from wildmvs.pipeline.depthmaps import get_mask_invalid as jax_mask_invalid
 from wildmvs.train.checkpoint import save_params_npz
-from wildmvs_torch.infer import Predictor, _stage
+from wildmvs_torch import infer
+from wildmvs_torch.infer import Predictor, _stage, staging_stats
 from wildmvs_torch.models import build_model
 from wildmvs_torch.pipeline.depthmaps import (eval_model_kwargs,
                                               get_mask_invalid, run_depthmaps)
@@ -257,6 +258,177 @@ def test_threads_sharing_a_predictor_keep_their_own_inputs(case):
         k = 0 if torch.equal(cams[0], want[0][1][0]) else 1
         assert_bitwise(x, want[k][0])
         assert_bitwise(cams, want[k][1])
+
+
+def large_request(case, seed):
+    """A 3-view request whose views reach the copy team's threshold (a
+    view 960 wide or wider, at B 1, is at least `_TEAM_MIN_BYTES` of f32):
+    stacked, batched (B 2), ragged (two large views and one of half the
+    height, under the threshold, copied on the calling thread), or in
+    float64 (cast chunk by chunk)."""
+    h = 32 * -(-infer._TEAM_MIN_BYTES // (4 * 3 * 960 * 32))
+    imgs, K, R, t, dmin, dmax = staging_request(
+        "batched" if case == "batched" else "stacked", seed)
+    rng = np.random.default_rng(seed)
+    nb = 2 if case == "batched" else 1
+    big = rng.random((nb, 3, h, 1024, 3), np.float32)
+    if case == "batched":
+        return (big,) + (K, R, t, dmin, dmax)
+    if case == "ragged":
+        return ([big[0, 0], big[0, 1, :, :960], big[0, 2, :h // 2]], K, R,
+                t, dmin, dmax)
+    if case == "float64":
+        return (big[0].astype(np.float64), K, R, t, dmin, dmax)
+    return (big[0], K, R, t, dmin, dmax)
+
+
+@pytest.fixture
+def team(monkeypatch):
+    """The copy team at two workers, whatever the host's cores; returns a
+    function that reads what `staging_stats` counted since."""
+    monkeypatch.setattr(infer, "_team_workers", lambda: 2)
+    start = staging_stats()
+    return lambda: {k: v - start[k] for k, v in staging_stats().items()}
+
+
+def calling_thread_inputs(monkeypatch, req):
+    """The request staged with every view copied on the calling thread."""
+    with monkeypatch.context() as m:
+        m.setattr(infer, "_TEAM_MIN_BYTES", 1 << 62)
+        return staged(*req)
+
+
+@pytest.mark.parametrize("case", ["stacked", "batched", "ragged", "float64"])
+def test_the_copy_team_stages_large_views_bit_for_bit(case, team,
+                                                      monkeypatch):
+    """Views at or above the threshold go through the team and give the
+    model the calling-thread path's tensors, and the parent's, bit for
+    bit."""
+    req = large_request(case, 5)
+    want_x, want_cams = calling_thread_inputs(monkeypatch, req)
+    assert team()["team_requests"] == 0
+    for _ in range(3):
+        x, cams = staged(*req)
+        assert_bitwise(x, want_x)
+        assert_bitwise(cams, want_cams)
+    parent_x, parent_cams = parent_inputs(*req)
+    assert_bitwise(x, parent_x)
+    assert_bitwise(cams, parent_cams)
+    counted = team()
+    assert counted["requests"] == 4 and counted["team_requests"] == 3
+    views = 2 if case == "ragged" else 3
+    nb = 2 if case == "batched" else 1
+    assert counted["chunks"] >= 3 * views * nb * 4
+    assert 0 <= counted["worker_chunks"] <= counted["chunks"]
+
+
+@pytest.mark.parametrize("case", ["stacked", "ragged_batched", "cell4"])
+def test_views_under_the_threshold_never_reach_the_team(case, team):
+    """Small views (the tests' 64x96 ones; the 512x640 views of the
+    benchmark's 512x640 cell) are copied on the calling thread alone;
+    the 1184x1600 views of the DTU cells are over the threshold."""
+    assert 4 * 512 * 640 * 3 < infer._TEAM_MIN_BYTES <= 4 * 1184 * 1600 * 3
+    if case == "cell4":
+        req = staging_request("stacked", 6)
+        req = ([np.random.default_rng(6).random((512, 640, 3), np.float32)
+                for _ in range(3)],) + req[1:]
+    else:
+        req = staging_request(case, 6)
+    x, cams = staged(*req)
+    assert_bitwise(x, parent_inputs(*req)[0])
+    assert team() == {"requests": 1, "team_requests": 0, "chunks": 0,
+                      "worker_chunks": 0}
+
+
+@pytest.mark.parametrize("cores,ranks", [(8, 1), (8, 4), (2, 1), (1, 1),
+                                         (64, 1), (64, 3)])
+def test_the_team_takes_half_of_this_ranks_share_of_the_cores(
+        cores, ranks, monkeypatch):
+    """The team's size comes from the cores the process may use, shared
+    with the other ranks of its group; with none to spare, large views
+    stay on the calling thread."""
+    monkeypatch.setattr(infer.os, "sched_getaffinity",
+                        lambda pid: set(range(cores)))
+    monkeypatch.setattr(infer, "world", lambda: (ranks, 0))
+    workers = infer._team_workers()
+    assert workers == min(infer._TEAM_MAX, cores // ranks // 2)
+    start = staging_stats()
+    staged(*large_request("stacked", 7))
+    used = staging_stats()["team_requests"] - start["team_requests"]
+    assert used == (workers > 0)
+
+
+@pytest.mark.parametrize("where", ["team", "calling_thread"])
+def test_a_failing_copy_raises_and_the_team_serves_the_next_request(
+        where, team, monkeypatch):
+    """A cast that fails in a chunk (a team view) or on the calling thread
+    (a small view) raises in the caller; no chunk of that request is left
+    running or queued, and the next request is staged bit for bit."""
+    imgs, *cams = large_request("stacked", 8)
+    views = list(imgs)
+    bad = views[1].astype(object)
+    bad[-3, 5, 1] = "not a number"
+    views[1] = bad if where == "team" else bad[-64:]
+    with pytest.raises(ValueError):
+        staged(views, *cams)
+    copies = []
+    queued = infer._TEAM[0][2]
+    while not queued.empty():
+        copies.append(queued.get())
+    assert all(c is None or c.chunks == [] for c in copies)
+    req = large_request("ragged", 9)
+    x, cams = staged(*req)
+    want_x, want_cams = calling_thread_inputs(monkeypatch, req)
+    assert_bitwise(x, want_x)
+    assert team()["team_requests"] == 1
+
+
+def test_the_team_keeps_its_threads_over_requests(team):
+    """The team starts once: twenty requests leave as many threads alive
+    as the first left, and the workers copy chunks of them."""
+    req = large_request("stacked", 10)
+    staged(*req)
+    alive = threading.active_count()
+    for _ in range(20):
+        staged(*req)
+    assert threading.active_count() == alive
+    counted = team()
+    assert counted["team_requests"] == 21
+    assert counted["worker_chunks"] > 0
+
+
+def test_threads_staging_large_requests_keep_their_own_inputs(team):
+    """Two threads staging large requests at once through one Predictor,
+    switching often, each hand the model their own inputs, and the tally
+    loses no request."""
+    pred, seen = recording_predictor()
+    reqs = {k: large_request("ragged" if k else "stacked", 11 + k)
+            for k in range(2)}
+    want = {k: parent_inputs(*r) for k, r in reqs.items()}
+    start = threading.Barrier(2)
+
+    def serve(k):
+        start.wait()
+        for _ in range(5):
+            pred(*reqs[k])
+
+    threads = [threading.Thread(target=serve, args=(k,)) for k in reqs]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+            assert not th.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
+    assert len(seen) == 10
+    for x, cams in seen:
+        k = 1 if isinstance(x, list) else 0
+        assert_bitwise(x, want[k][0])
+        assert_bitwise(cams, want[k][1])
+    assert team()["team_requests"] == 10
 
 
 def test_run_depthmaps_writes_npz_and_sentinel(tmp_path, npz_checkpoint):

@@ -2,7 +2,8 @@
 PyTorch's caching host allocator hands the next request of the same size
 again, results bit-identical to a fresh Predictor's and to the model
 fed the unstaged uploads, and a request that raises inside the forward
-leaving the next one correct.
+leaving the next one correct; a 1184x1600 N5 request's views copied by
+the copy team, bit-identical to the unstaged upload.
 
 Imports neither jax nor the JAX package, so it runs on the card without
 the repo's test configuration:
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 from wildmvs_torch.bench import scene_dtu
-from wildmvs_torch.infer import Predictor
+from wildmvs_torch.infer import Predictor, staging_stats
 
 
 def requests():
@@ -76,3 +77,28 @@ def test_staged_requests_on_the_card():
     del pred.model.forward
     assert_same(pred(*reqs[1]), outs[1])
     assert_same(pred(*reqs[0]), outs[0])
+
+
+@pytest.mark.gpu
+def test_a_dtu_request_goes_through_the_copy_team():
+    """The 1184x1600 N5 views (22.7 MB each) are copied by the team, the
+    depth equals the model's on the unstaged pageable upload, and a second
+    request of that size takes no new pinned block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: staging engages on the card only")
+    req = tuple(a.numpy()[0] for a in scene_dtu(1, 5, 1184, 1600, 2892.0))
+    pred = Predictor(architecture="mvsnet")
+    before = staging_stats()
+    out = pred(*req)
+    after = staging_stats()
+    alloc = torch.cuda.host_memory_stats()["num_host_alloc"]
+    assert after["team_requests"] == before["team_requests"] + 1
+    assert after["worker_chunks"] > before["worker_chunks"], (before, after)
+    assert_same(pred(*req), out)
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == alloc
+    x = torch.as_tensor(np.array(req[0], np.float32)[None], device="cuda")
+    cams = [torch.as_tensor(np.array(a, np.float32)[None], device="cuda")
+            for a in req[1:]]
+    with torch.inference_mode():
+        depth = pred.model(x, *cams)["depth"].float().cpu().numpy()[0]
+    np.testing.assert_array_equal(out["depth"], depth)

@@ -19,13 +19,17 @@ Vis-MVSNet's source pairs; every rank returns the whole result.
 """
 from __future__ import annotations
 
+import os
+import queue
+import sys
+import threading
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from .device import resolve_device
-from .dist.mesh import use_mesh
+from .dist.mesh import use_mesh, world
 from .models import build_model
 from .pipeline.depthmaps import eval_model_kwargs
 from .train.checkpoint import resolve_checkpoint
@@ -153,9 +157,11 @@ class Predictor:
         Under a profiler a call records the span
         `wildmvs_torch.Predictor.request` and, inside it, `.prepare` (the
         views' crop; the host buffers and the cameras' copy into theirs;
-        each view's copy into its slot), `.upload` (the enqueue of the
-        cameras' asynchronous copy, then of each view's after its
-        `.prepare`), `.forward` and `.fetch`."""
+        each view's copy into its slot, or for a large view the calling
+        thread's share of it and its wait for the copy team's), `.upload`
+        (the enqueue of the cameras' asynchronous copy, then of each
+        view's after its `.prepare`), `.forward` and `.fetch`. The copy
+        team's threads record no span."""
         with span(f"{SPAN}.request"):
             with span(f"{SPAN}.prepare"):
                 views, ragged, batched = self._views(imgs)
@@ -179,6 +185,143 @@ class Predictor:
 #: the flat buffer, as aligned as a tensor of its own, since a kernel that
 #: reads it may choose its path by alignment
 _ALIGN = 64
+#: a view of at least this many f32 bytes (over its batch) is copied by
+#: the copy team and the calling thread together, a smaller one by the
+#: calling thread alone. On an 8-core H100 host (tools/time_stage.py) a
+#: team of 4 took a 5-view request's copies from 23.1 to 6.3 ms at 22.7 MB
+#: a view (p90 25.3 to 7.1). At 3.9 MB (512x640) one such host gained
+#: (4.1 to 1.6 ms) and another lost (3 views: 2.4 to 3.3 ms, p90 2.7 to
+#: 4.8; and at every size down to 1 MB), so views up to 512x640 at B 2
+#: (7.9 MB) stay on the calling thread.
+_TEAM_MIN_BYTES = 8 << 20
+#: a team view's copy is split into row ranges of about this many bytes
+#: (1, 2 and 4 MiB measured alike within 10 % there)
+_CHUNK_BYTES = 2 << 20
+#: the most workers the copy team takes: 4 were fastest of 1-6 on that
+#: host, and 3 served the 1184x1600 cell 8 % slower than 4
+_TEAM_MAX = 4
+
+_STATS = dict.fromkeys(("requests", "team_requests", "chunks",
+                        "worker_chunks"), 0)
+_STATS_LOCK = threading.Lock()
+_TEAM = [None]                  # (pid, workers, queue) of the running team
+_TEAM_LOCK = threading.Lock()
+
+
+def staging_stats() -> dict:
+    """The process's tally of `_stage`: requests staged, requests whose
+    views went through the copy team, chunks copied on the team's path,
+    and those of them that workers copied (the rest the calling
+    threads)."""
+    with _STATS_LOCK:
+        return dict(_STATS)
+
+
+def _team_workers() -> int:
+    """Copy workers this process may run: half of its share of the cores
+    it may use, the default group's ranks taken to share this host (a
+    serving mesh spans one host's cards), and at most `_TEAM_MAX`. The
+    other half is left to the calling thread and the CUDA runtime's."""
+    share = len(os.sched_getaffinity(0)) // world()[0]
+    return min(_TEAM_MAX, share // 2)
+
+
+def _team(workers: int):
+    """The copy team's queue, with `workers` threads waiting on it: started
+    on first use, and again in a forked child (its parent's threads did
+    not follow it) or when the size the process may run has changed."""
+    pid = os.getpid()
+    with _TEAM_LOCK:
+        team = _TEAM[0]
+        if team is None or team[:2] != (pid, workers):
+            if team is not None and team[0] == pid:
+                for _ in range(team[1]):
+                    team[2].put(None)               # retires a worker
+            q = queue.SimpleQueue()
+            for _ in range(workers):
+                threading.Thread(target=_copy_worker, args=(q,), daemon=True,
+                                 name="wildmvs_torch.stage").start()
+            _TEAM[0] = team = (pid, workers, q)
+        return team[2]
+
+
+def _copy_worker(q) -> None:
+    """A team thread: wait for a request's copies (a blocking wait, never a
+    spin), copy its chunks until none is left unclaimed, wait again."""
+    while (copies := q.get()) is not None:
+        copies.run(worker=True)
+
+
+class _Copies:
+    """One request's chunk copies, (unit, destination, source) in unit
+    order, a unit being one batch item of one view (uploaded as one).
+    The calling thread and the team's workers claim them one at a time;
+    numpy's assignment releases the GIL for the copy itself. The calling
+    thread copies chunks up to the unit it waits for, then waits for that
+    unit's chunks in flight. The first error a chunk meets stops further
+    claims and is raised on the calling thread; `close` stops claims,
+    waits for the chunks in flight and drops every reference, so a worker
+    that finds this object in the queue later holds nothing of the
+    request."""
+
+    def __init__(self, chunks: list, units: int):
+        self.chunks = chunks
+        self.next = 0                           # the first unclaimed chunk
+        self.left = [0] * units                 # chunks not finished, a unit
+        for c in chunks:
+            self.left[c[0]] += 1
+        self.by_workers = 0
+        self.error = None
+        self.cond = threading.Condition()
+
+    def _claim(self, last: int):
+        with self.cond:
+            if (self.next < len(self.chunks)
+                    and self.chunks[self.next][0] <= last):
+                self.next += 1
+                return self.chunks[self.next - 1]
+        return None
+
+    def _cancel(self) -> None:
+        """Forget the unclaimed chunks (under `cond`)."""
+        for c in self.chunks[self.next:]:
+            self.left[c[0]] -= 1
+        self.next = len(self.chunks)
+
+    def run(self, last: int = sys.maxsize, worker: bool = False) -> None:
+        """Copy unclaimed chunks of the units up to `last`, in order."""
+        while (chunk := self._claim(last)) is not None:
+            unit, dst, src = chunk
+            error = None
+            try:
+                dst[...] = src
+            except Exception as e:              # raised by `wait`
+                error = e
+            finally:
+                with self.cond:
+                    self.left[unit] -= 1
+                    self.by_workers += worker
+                    if error is not None and self.error is None:
+                        self.error = error
+                        self._cancel()
+                    if self.error is not None or not self.left[unit]:
+                        self.cond.notify_all()
+
+    def wait(self, unit: int) -> None:
+        """Copy up to `unit`, then wait until its chunks are done; raise
+        the error a chunk met."""
+        self.run(unit)
+        with self.cond:
+            self.cond.wait_for(
+                lambda: self.error is not None or not self.left[unit])
+            if self.error is not None:
+                raise self.error
+
+    def close(self) -> None:
+        with self.cond:
+            self._cancel()
+            self.cond.wait_for(lambda: not any(self.left))
+            self.chunks, self.error = [], None
 
 
 def _stage(views: list, ragged: bool, cams: list,
@@ -188,24 +331,31 @@ def _stage(views: list, ragged: bool, cams: list,
     images [B, N, h, w, 3], or a list of [B, h_i, w_i, 3] when `ragged`;
     the cameras as tensors of their shapes).
 
-    Each view is copied, cast to f32 by numpy's assignment on the calling
-    thread, into its slot of a host buffer of this request's own: one
-    [B, N, h, w, 3] for stacked views, one [B, h_i, w_i, 3] each for
-    ragged ones. Torch's copy would split it over the intra-op OpenMP
-    team, one thread a core, which spin after each region; where other
-    threads share the cores (the CUDA runtime's, other processes'), one
-    preempted member holds the whole copy back, and on an 8-core H100
-    host a tenth of the 512x640 requests took 1.5x the median. The
+    Each view is copied, cast to f32 by numpy's assignment, into its slot
+    of a host buffer of this request's own: one [B, N, h, w, 3] for
+    stacked views, one [B, h_i, w_i, 3] each for ragged ones. A view of
+    `_TEAM_MIN_BYTES` or more is split into row ranges of about
+    `_CHUNK_BYTES`, which the calling thread and a process-wide copy team
+    (`_team`: a few threads that block while idle) claim one at a time,
+    view after view; a smaller view is copied on the calling thread
+    alone. Torch's own copy would split it over the intra-op OpenMP team,
+    one thread a core, which spin after each region and each take an
+    equal share: where other threads share the cores (the CUDA runtime's,
+    other processes'), one preempted member holds the whole copy back,
+    and on an 8-core H100 host a tenth of the 512x640 requests took 1.5x
+    the median. A preempted team worker holds back only the chunk it
+    claimed. `staging_stats()` counts how often the team engages. The
     cameras share one flat buffer and one upload and are sliced on the
-    device. On the card the buffers are pinned and each
-    slot's upload is enqueued with `non_blocking=True` as soon as it is
-    filled, so its DMA overlaps the copy of the next view. PyTorch's
-    caching host allocator keeps a freed pinned block for the next
-    request and records an event on every asynchronous copy out of it, so
-    it hands the block out again only once those copies are done. The
-    device tensors are new ones from the caching allocator. On the CPU
-    the host buffers are the model's inputs, and each upload is a copy
-    onto itself, which returns at once.
+    device. On the card the buffers are pinned, and each slot's upload is
+    enqueued by the calling thread with `non_blocking=True` as soon as its
+    chunks are done, so its DMA overlaps the copy of the next view.
+    PyTorch's caching host allocator keeps a freed pinned block for the
+    next request (`torch.cuda.host_memory_stats()["num_host_alloc"]`
+    counts the blocks it had to allocate) and records an event on every
+    asynchronous copy out of it, so it hands the block out again only
+    once those copies are done. The device tensors are new ones from the
+    caching allocator. On the CPU the host buffers are the model's inputs,
+    and each upload is a copy onto itself, which returns at once.
     """
     if ragged:
         shapes = [tuple(v.shape) for v in views]
@@ -216,6 +366,10 @@ def _stage(views: list, ragged: bool, cams: list,
     starts = [0]
     for c in cams:
         starts.append(starts[-1] + -(-c.size // _ALIGN) * _ALIGN)
+    nb = views[0].shape[0]
+    workers = _team_workers()
+    big = {i for i, v in enumerate(views)
+           if workers and 4 * v.size >= _TEAM_MIN_BYTES}
     pin = device.type == "cuda"
     with span(f"{SPAN}.prepare"):
         host = [torch.empty(s, dtype=torch.float32, pin_memory=pin)
@@ -224,17 +378,42 @@ def _stage(views: list, ragged: bool, cams: list,
         flat_np = flat.numpy()
         for c, o in zip(cams, starts):
             flat_np[o:o + c.size] = c.reshape(-1)
-    with span(f"{SPAN}.upload"):
-        flat = flat.to(device, non_blocking=True)
-    dev = ([torch.empty(s, dtype=torch.float32, device=device)
-            for s in shapes] if pin else host)
-    for i, v in enumerate(views):
-        src, out = ((host[i], dev[i]) if ragged else
-                    (host[0][:, i], dev[0][:, i]))
-        for b in range(v.shape[0]):
-            with span(f"{SPAN}.prepare"):
-                src[b].numpy()[...] = v[b]
-            with span(f"{SPAN}.upload"):
-                out[b].copy_(src[b], non_blocking=True)
+        slots = [host[i] if ragged else host[0][:, i]
+                 for i in range(len(views))]
+        chunks = []
+        for i in sorted(big):
+            for b in range(nb):
+                dst, src = slots[i][b].numpy(), views[i][b]
+                k = -(-dst.nbytes // _CHUNK_BYTES)
+                rows = [len(dst) * j // k for j in range(k + 1)]
+                chunks += [(i * nb + b, dst[r0:r1], src[r0:r1])
+                           for r0, r1 in zip(rows, rows[1:])]
+        copies = _Copies(chunks, len(views) * nb)
+        if big:
+            q = _team(workers)
+            for _ in range(workers):
+                q.put(copies)
+    try:
+        with span(f"{SPAN}.upload"):
+            flat = flat.to(device, non_blocking=True)
+        dev = ([torch.empty(s, dtype=torch.float32, device=device)
+                for s in shapes] if pin else host)
+        for i, v in enumerate(views):
+            out = dev[i] if ragged else dev[0][:, i]
+            for b in range(nb):
+                with span(f"{SPAN}.prepare"):
+                    if i in big:
+                        copies.wait(i * nb + b)
+                    else:
+                        slots[i][b].numpy()[...] = v[b]
+                with span(f"{SPAN}.upload"):
+                    out[b].copy_(slots[i][b], non_blocking=True)
+    finally:
+        copies.close()
+    with _STATS_LOCK:
+        _STATS["requests"] += 1
+        _STATS["team_requests"] += bool(big)
+        _STATS["chunks"] += len(chunks)
+        _STATS["worker_chunks"] += copies.by_workers
     return (dev if ragged else dev[0],
             [flat[o:o + c.size].view(c.shape) for c, o in zip(cams, starts)])
