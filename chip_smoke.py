@@ -58,6 +58,16 @@ JAX or of the JAX package. Phases, each of which stops the run if it fails:
      the last loss below the first; the first step's feature gradients at
      both levels against the exact gather's autograd; an eval and a test
      step (fused launches) and a checkpoint served by Predictor.
+ 8b. CasMVSNet serving (`phase8b_cas_serving`, the path "cas_serving"):
+     Predictor(architecture="cas_mvsnet") at its defaults (the exact
+     fused sweep in bf16), random weights with each stage's prob x
+     PROB_GAIN, answers CAS_REQUESTS requests at 1184x1600 N5: 3
+     fused_cost_volume and 3 conv3d_head launches a request, counted from
+     0 just before them, and nothing else of the kernels; finite
+     full-resolution outputs; each stage's launch held to its plain
+     version and its volume to the exact gather on the request's own
+     inputs (`record_cas_stages`), the stage-3 depth within one stage-3
+     interval of the gather's on >= 95 % of pixels.
  10. the rectified sweep (phase10_rect_serving) and
  11. the reconstruction pipeline (phase11_reconstruction): see their
      docstrings.
@@ -168,12 +178,13 @@ JAX or of the JAX package. Phases, each of which stops the run if it fails:
 Phase 1 also holds the regularizers' score head (`phase1_conv_head`,
 csrc/conv3d_head.cu) to its plain version at MVSNet's 1184x1600 head
 (D192 C8, with bias), Vis-MVSNet's stage 3 (592x800 D16 C8) and
-CVP-MVSNet's finest level (1184x1600 D8 C16, with bias), in bf16, and
-times it beside its bound and F.conv3d (cuDNN) as its yardstick. Its
+CVP-MVSNet's finest level (1184x1600 D8 C16, with bias) and CasMVSNet's
+three stages (C8 without bias at 296x400 D48, 592x800 D32 and 1184x1600
+D8), in bf16, and times it beside its bound and F.conv3d (cuDNN) as its yardstick. Its
 launches (`conv3d_head`, registered with sweep_kernels) are counted in
 every path like the sweep kernels': one a MVSNet request, 3n a Vis-MVSNet
-request of n views (`vis_heads`), one a CVP-MVSNet level, none in a step
-with grad or in a hyp-partitioned regularizer.
+request of n views (`vis_heads`), one a CVP-MVSNet level or CasMVSNet
+stage, none in a step with grad or in a hyp-partitioned regularizer.
 
 Phase 1 also holds sweep_warp_backward to its plain version ([D], [D,H,W]
 and the behind-camera rig) and times it against torch's
@@ -194,7 +205,9 @@ count they take (CHANNELS, a kernel body each) in both conventions,
 sweep_gwc and the fused kernel (variance and softmin, [D] and [D,H,W]) at
 those they take; the fused kernel also at 6, 8 and 16 source
 views (FUSED_VIEWS), where its stage buffers shrink or vanish to keep
-the block's shared memory in bounds; at each timed shape a forward
+the block's shared memory in bounds; and at the three stages of
+CasMVSNet's cell (`phase1_cas_kernels`: NV 4, 48 planes at 296x400 C32,
+per-pixel 32 at 592x800 C16 and 8 at 1184x1600 C8); at each timed shape a forward
 kernel's own count of staged stages is printed beside the share that the
 plain rule (sweep_footprints) predicts. Phase 3 times the fused kernel at
 the eval shapes by CUDA-graph replay too.
@@ -232,6 +245,7 @@ from wildmvs_torch.dist.mesh import (collective_bytes, make_mesh,
 from wildmvs_torch.dist.view_parallel import make_view_parallel_train_step
 from wildmvs_torch.geometry.projective import build_proj_matrices, scale_K
 from wildmvs_torch.infer import Predictor
+from wildmvs_torch.models import cas_mvsnet as cas_module
 from wildmvs_torch.models import mvsnet as mvsnet_module
 from wildmvs_torch.models import vis_mvsnet as vis_module
 from wildmvs_torch.ops import conv_head
@@ -239,7 +253,8 @@ from wildmvs_torch.ops import rect_sweep as rs
 from wildmvs_torch.ops import sweep_kernels as sk
 from wildmvs_torch.ops.plane_sweep import (homography_sweep_warp,
                                            plane_sweep_warp)
-from wildmvs_torch.ops.volumes import groupwise_correlation
+from wildmvs_torch.ops.volumes import (depth_regression,
+                                      groupwise_correlation, softmax_depth)
 from wildmvs_torch.data.codecs import (read_colmap_array, read_dmb,
                                        write_cam_txt, write_pfm)
 from wildmvs_torch.losses import photometric as photometric_module
@@ -289,6 +304,7 @@ CHANNELS = (8, 16, 64, 128, 256)
 # at each of the two sizes
 CVP_NSCALE = 5
 CVP_REQUESTS = 3
+CAS_REQUESTS = 3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -807,11 +823,66 @@ def phase1_channels(dev):
     torch.cuda.empty_cache()
 
 
+def cas_kernel_inputs(dev, k: int):
+    """Seeded bf16 features of EVAL's five views at CasMVSNet's stage k (0
+    the coarsest: 1/4, 1/2 and 1 of the image, 32, 16 and 8 channels) and
+    the stage's hypotheses on the DTU-like rig: stage 1's 48 planes [1, D],
+    a later stage's per-pixel samples [1, D, H, W] (cas_mvsnet's
+    stage_hypotheses) around a depth map drawn at 37x50 and upsampled, as
+    the previous stage's is. (ref, srcs, P, Q, s)."""
+    n, h, w = EVAL["n"], EVAL["h"], EVAL["w"]
+    scale = cas_module.STAGE_SCALES[k]
+    fh, fw = int(h * scale), int(w * scale)
+    c = cas_module.FPNFeatureNet().out_channels[k]
+    d = cas_module.NDEPTHS[k]
+    gen = torch.Generator(dev).manual_seed(40 + k)
+    feats = torch.randn((1, n, fh, fw, c), device=dev, generator=gen).to(
+        torch.bfloat16)
+    _, K, R, t, _, _ = dtu_scene(0, n, h, w, EVAL["f"])
+    proj = build_proj_matrices(scale_K(torch.from_numpy(K)[None].to(dev),
+                                       scale),
+                               torch.from_numpy(R)[None].to(dev),
+                               torch.from_numpy(t)[None].to(dev))
+    planes = [sk.mvsnet_planes(proj[:, i], proj[:, 0], (fh, fw))
+              for i in range(1, n)]
+    lo, hi = DEPTH_RANGE
+    if k == 0:
+        s = torch.linspace(lo, hi, d, device=dev)[None]
+    else:
+        prev = lo + 100.0 + (hi - lo - 200.0) * torch.rand(
+            (1, 37, 50), device=dev, generator=gen)
+        delta = torch.full((1,), (hi - lo) / cas_module.BASE_DEPTHS,
+                           device=dev)
+        s = cas_module.stage_hypotheses(prev, (h, w), (fh, fw), d,
+                                        cas_module.INTERVAL_RATIOS[k], delta)
+    return (feats[:, 0].contiguous(), feats[:, 1:].contiguous(),
+            torch.stack([p for p, _ in planes], 1),
+            torch.stack([q for _, q in planes], 1), s.contiguous())
+
+
+def phase1_cas_kernels(dev, results):
+    """fused_cost_volume at each stage of CasMVSNet's cell (1184x1600, NV4:
+    48 planes at 296x400 C32, 32 per-pixel samples at 592x800 C16, 8 at
+    1184x1600 C8; cas_kernel_inputs) held to its plain version and timed
+    (added to `results` under "cas")."""
+    cas = {}
+    for k in range(len(cas_module.NDEPTHS)):
+        cas[f"stage{k + 1}"] = fused_kernel_case(
+            f"CasMVSNet stage {k + 1}", *cas_kernel_inputs(dev, k), "phase1")
+        torch.cuda.empty_cache()
+    results["fused_cost_volume"]["cas"] = cas
+    return results
+
+
 #: the score head's timed shapes [B, C, D, H, W] and bias: MVSNet's head at
-#: 1184x1600, Vis-MVSNet's stage 3 (its largest), CVP-MVSNet's finest level
+#: 1184x1600, Vis-MVSNet's stage 3 (its largest), CVP-MVSNet's finest level,
+#: CasMVSNet's three stages at 1184x1600 (no bias)
 HEAD_SHAPES = {"mvsnet 1184x1600": ((1, 8, 192, 296, 400), True),
                "vis stage 3": ((1, 8, 16, 592, 800), False),
-               "cvp finest": ((1, 16, 8, 1184, 1600), True)}
+               "cvp finest": ((1, 16, 8, 1184, 1600), True),
+               "cas stage 1": ((1, 8, 48, 296, 400), False),
+               "cas stage 2": ((1, 8, 32, 592, 800), False),
+               "cas stage 3": ((1, 8, 8, 1184, 1600), False)}
 
 
 def vis_heads(n: int) -> int:
@@ -869,13 +940,18 @@ def phase1_conv_head(dev, results) -> dict:
 
 
 def sharpen(pred: Predictor) -> Predictor:
-    """The predictor with its last conv (MVSNet's prob, CVP's prob0)
-    scaled by PROB_GAIN."""
+    """The predictor with its score heads (MVSNet's prob, CVP's prob0, the
+    prob of each CasMVSNet stage) scaled by PROB_GAIN."""
     model = pred.model
-    last = (model.cost_reg_refine.prob0 if hasattr(model, "cost_reg_refine")
-            else model.cost_regularization.prob)
+    if hasattr(model, "cost_reg_refine"):
+        heads = [model.cost_reg_refine.prob0]
+    elif isinstance(model.cost_regularization, torch.nn.ModuleList):
+        heads = [reg.prob for reg in model.cost_regularization]
+    else:
+        heads = [model.cost_regularization.prob]
     with torch.no_grad():
-        last.weight.mul_(PROB_GAIN)
+        for head in heads:
+            head.weight.mul_(PROB_GAIN)
     return pred
 
 
@@ -1842,9 +1918,35 @@ def cvp_agreement(pred, scene):
     return worst, levels
 
 
-def cvp_level_kernel(lv, name):
-    """fused_cost_volume at one recorded CVP eval level: held to its plain
+def fused_kernel_case(label, ref, srcs, P, Q, s, phase):
+    """fused_cost_volume (variance) on one set of inputs: held to its plain
     version, timed by CUDA-graph replay and bounded."""
+    a = (ref, srcs, P, Q, s, None, "variance")
+    out = sk.fused_cost_volume(*a)
+    err = compare(f"fused_cost_volume {label}", out,
+                  sk.fused_cost_volume_plain(*a), phase=phase)
+    ms = graph_ms(lambda: sk.fused_cost_volume(*a), reps=10)
+    plain_ms = cuda_ms(lambda: sk.fused_cost_volume_plain(*a), reps=2,
+                       warmup=1)
+    fh, fw = ref.shape[1:3]
+    share, plain_share, _ = tile_shares(
+        lambda: sk.fused_cost_volume(*a), P, Q, s, (fh, fw),
+        sk.fused_plan(ref.shape[-1], P.shape[1]))
+    work = sk.fused_work(ref, srcs, P, Q, s)
+    (b_ms, b_by), n_live = sk.bound(work), work.live_samples
+    shape = (f"{fh}x{fw} D{s.shape[1]} NV{P.shape[1]} C{ref.shape[-1]} "
+             f"{'[D,H,W]' if s.dim() == 4 else '[D]'}")
+    print(f"{phase} fused_cost_volume {label} {shape}: ms {ms:.4f} "
+          f"(CUDA-graph replay) plain_ms {plain_ms:.3f} bound_ms {b_ms:.4f} "
+          f"({b_by}) live samples {n_live}; staged share {share:.4f} (plain "
+          f"rule {plain_share:.4f})", flush=True)
+    return dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                staged_share=share)
+
+
+def cvp_level_kernel(lv, name):
+    """fused_kernel_case at one recorded CVP eval level."""
     f = lv["flevel"]
     ref = f[0].to(torch.bfloat16).contiguous()
     srcs = torch.stack(f[1:], 1).to(torch.bfloat16).contiguous()
@@ -1853,29 +1955,8 @@ def cvp_level_kernel(lv, name):
               for i in range(1, len(f))]
     P = torch.stack([p for p, _ in planes], 1)
     Q = torch.stack([q for _, q in planes], 1)
-    s = lv["hyp"].contiguous()
-    a = (ref, srcs, P, Q, s, None, "variance")
-    out = sk.fused_cost_volume(*a)
-    err = compare(f"fused_cost_volume CVP {name}", out,
-                  sk.fused_cost_volume_plain(*a))
-    ms = graph_ms(lambda: sk.fused_cost_volume(*a), reps=10)
-    plain_ms = cuda_ms(lambda: sk.fused_cost_volume_plain(*a), reps=2,
-                       warmup=1)
-    share, plain_share, _ = tile_shares(
-        lambda: sk.fused_cost_volume(*a), P, Q, s, (fh, fw),
-        sk.fused_plan(ref.shape[-1], P.shape[1]))
-    work = sk.fused_work(ref, srcs, P, Q, s)
-    (b_ms, b_by), n_live = sk.bound(work), work.live_samples
-    D = s.shape[1]
-    shape = (f"{fh}x{fw} D{D} NV{P.shape[1]} C{ref.shape[-1]} "
-             f"{'[D,H,W]' if s.dim() == 4 else '[D]'}")
-    print(f"phase8 fused_cost_volume CVP {name} {shape}: ms {ms:.4f} "
-          f"(CUDA-graph replay) plain_ms {plain_ms:.3f} bound_ms {b_ms:.4f} "
-          f"({b_by}) live samples {n_live}; staged share {share:.4f} (plain "
-          f"rule {plain_share:.4f})", flush=True)
-    return dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                staged_share=share)
+    return fused_kernel_case(f"CVP {name}", ref, srcs, P, Q,
+                             lv["hyp"].contiguous(), "phase8")
 
 
 def phase8_cvp_serving(results):
@@ -1964,6 +2045,135 @@ def phase8_cvp_serving(results):
         headline_first_request_ms=head_ms, headline_request_ms=steady_head,
         headline_request_ms_median=float(np.median(steady_head)),
         peak_gib=peak / 2 ** 30, agreement=worst, **prof)
+
+
+def record_cas_stages(rec: list):
+    """Patch the sweep_cost_volume of models/cas_mvsnet.py so that each call
+    keeps its stage's inputs, backend and cost volume in `rec` (the
+    coarsest stage first). Returns undo."""
+    real = cas_module.sweep_cost_volume
+
+    def recording(ref, srcs, src_projs, ref_proj, hyp, method, *args):
+        cv = real(ref, srcs, src_projs, ref_proj, hyp, method, *args)
+        rec.append(dict(ref=ref.detach(), srcs=[f.detach() for f in srcs],
+                        src_projs=src_projs, ref_proj=ref_proj,
+                        hyp=hyp.detach(), method=method, cv=cv.detach()))
+        return cv
+    cas_module.sweep_cost_volume = recording
+    return lambda: setattr(cas_module, "sweep_cost_volume", real)
+
+
+def cas_agreement(pred, scene):
+    """Each stage of a CasMVSNet request on its own inputs (features,
+    projections, the hypotheses the request made): the launch held to its
+    plain version under compare's limit; the served volume against the
+    exact gather within bf16 rounding (max 0.03, mean 0.002 of its scale);
+    the stage-3 depth regressed from the gather's volume within one stage-3
+    interval of the served depth on >= 95 % of pixels. Returns the worst
+    ratios."""
+    model = pred.model
+    stages = []
+    undo = record_cas_stages(stages)
+    try:
+        out = pred(*scene)
+    finally:
+        undo()
+    check(len(stages) == len(cas_module.NDEPTHS)
+          and all(st["method"] == "fused" for st in stages),
+          f"CasMVSNet served {[st['method'] for st in stages]}")
+    worst = {}
+    with torch.inference_mode():
+        for k, st in enumerate(stages, start=1):
+            ref16 = st["ref"].to(torch.bfloat16).contiguous()
+            srcs16 = torch.stack(st["srcs"], 1).to(torch.bfloat16)
+            fh, fw = ref16.shape[1:3]
+            planes = [sk.mvsnet_planes(p, st["ref_proj"], (fh, fw))
+                      for p in st["src_projs"]]
+            P = torch.stack([p for p, _ in planes], 1)
+            Q = torch.stack([q for _, q in planes], 1)
+            a = (ref16, srcs16.contiguous(), P, Q, st["hyp"].contiguous(),
+                 None, "variance")
+            compare(f"fused_cost_volume CasMVSNet served stage {k}",
+                    sk.fused_cost_volume(*a), sk.fused_cost_volume_plain(*a),
+                    phase="phase8b")
+            cv_g = cas_module.sweep_cost_volume(
+                st["ref"], st["srcs"], st["src_projs"], st["ref_proj"],
+                st["hyp"], "gather")
+            scale = cv_g.float().abs().max().item()
+            err = (st["cv"].float() - cv_g.float()).abs()
+            mx, mean = err.max().item() / scale, err.mean().item() / scale
+            worst[f"stage{k}"] = mx
+            D, H, W = st["cv"].shape[1:4]
+            print(f"phase8b stage {k} ({H}x{W}, D{D}) cost volume vs "
+                  f"gather: max {mx:.5f} mean {mean:.6f} of the scale "
+                  f"{scale:.4g}", flush=True)
+            check(mx <= 0.03 and mean <= 0.002,
+                  f"CasMVSNet stage {k} cost volume disagrees with the "
+                  f"gather")
+        logits = model.cost_regularization[-1](cv_g)[..., 0]
+        depth_g = depth_regression(softmax_depth(logits.float()), st["hyp"])
+    interval = (DEPTH_RANGE[1] - DEPTH_RANGE[0]) / cas_module.BASE_DEPTHS \
+        * cas_module.INTERVAL_RATIOS[-1]
+    derr = np.abs(out["depth"] - depth_g[0].float().cpu().numpy()) / interval
+    within = float((derr < 1.0).mean())
+    print(f"phase8b stage-3 depth vs the gather's on the same inputs: mean "
+          f"{derr.mean():.4f} intervals ({interval:.4f} mm), {within:.4f} "
+          f"within 1, max {derr.max():.3f}", flush=True)
+    check(within >= 0.95, f"CasMVSNet stage-3 depth within one interval on "
+          f"{within:.4f} of pixels")
+    worst.update(stage3_within_1=within,
+                 stage3_mean_intervals=float(derr.mean()))
+    return worst
+
+
+def phase8b_cas_serving():
+    """CasMVSNet serving (the path "cas_serving"): Predictor(architecture=
+    "cas_mvsnet") at its defaults ("auto": the exact fused sweep in bf16 on
+    the card), random weights (seed 0, each stage's prob x PROB_GAIN):
+    CAS_REQUESTS requests at 1184x1600 N5, launches counted from 0 just
+    before them, 3 fused_cost_volume and 3 conv3d_head launches a request
+    and no other kernel; finite outputs at full resolution; each stage held
+    to the plain kernel and the gather (cas_agreement); one profiled
+    request."""
+    pred = sharpen(Predictor(architecture="cas_mvsnet"))
+    evals = [dtu_scene(50 + i, **EVAL) for i in range(CAS_REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    outs, first_ms = [], []
+    for sc in evals:
+        out, ms = request_ms(pred, sc)
+        outs.append(out)
+        first_ms.append(ms)
+    counts = sk.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase8b launches {json.dumps(counts)}", flush=True)
+    n_stages = len(cas_module.NDEPTHS)
+    check(counts == {"sweep_warp": 0, "sweep_warp_backward": 0,
+                     "fused_cost_volume": n_stages * CAS_REQUESTS,
+                     "sweep_gwc": 0, "conv3d_head": n_stages * CAS_REQUESTS},
+          f"CasMVSNet serving did not take {n_stages} fused and head "
+          f"launches a request: {counts}")
+    for out in outs:
+        check(out["depth"].shape == out["confidence"].shape
+              == (EVAL["h"], EVAL["w"]) and np.isfinite(out["depth"]).all()
+              and np.isfinite(out["confidence"]).all(), "bad CasMVSNet output")
+    steady = [request_ms(pred, evals[i % CAS_REQUESTS])[1]
+              for i in range(CAS_REQUESTS)]
+    print(f"phase8b CasMVSNet serving bf16 fused: {EVAL['h']}x{EVAL['w']} "
+          f"N{EVAL['n']} ms per depthmap {[round(t, 3) for t in first_ms]} "
+          f"then {[round(t, 3) for t in steady]} (median "
+          f"{np.median(steady):.3f}); peak memory {peak / 2**30:.3f} GiB; "
+          f"depth mean {outs[0]['depth'].mean():.2f} std "
+          f"{outs[0]['depth'].std():.2f}, confidence mean "
+          f"{outs[0]['confidence'].mean():.3f}", flush=True)
+    worst = cas_agreement(pred, evals[0])
+    torch.cuda.empty_cache()
+    prof = profile_step(lambda: pred(*evals[1]), "phase8b")
+    return counts, dict(
+        first_request_ms=first_ms, request_ms=steady,
+        request_ms_median=float(np.median(steady)), peak_gib=peak / 2 ** 30,
+        agreement=worst, **prof)
 
 
 def record_cvp_warps(model, rec: list):
@@ -4097,6 +4307,7 @@ def main() -> int:
     kernels = phase1_rect_kernels(dev, phase1_vis_kernels(
         dev, phase1_kernels(dev)))
     phase1_channels(dev)
+    phase1_cas_kernels(dev, kernels)
     phase1_conv_head(dev, kernels)
     kernels["sweep_warp"]["replaces"] = \
         "wildmvs/ops/mosaic_sweep.py:143 and :298"
@@ -4112,6 +4323,8 @@ def main() -> int:
     vis_train_counts, vis_training = phase7_vis_training(dev)
     torch.cuda.empty_cache()
     cvp_counts, cvp_serving = phase8_cvp_serving(kernels)
+    torch.cuda.empty_cache()
+    cas_counts, cas_serving = phase8b_cas_serving()
     torch.cuda.empty_cache()
     cvp_train_counts, cvp_training = phase9_cvp_training(dev)
     torch.cuda.empty_cache()
@@ -4163,7 +4376,8 @@ def main() -> int:
     paths = {"mvsnet_serving": counts, "mvsnet_training": train_counts,
              "vis_serving": vis_counts, "vis_training": vis_train_counts,
              "cvp_serving": cvp_counts, "cvp_training": cvp_train_counts,
-             "rect_serving": rect_counts, "reconstruction": recon_counts,
+             "cas_serving": cas_counts, "rect_serving": rect_counts,
+             "reconstruction": recon_counts,
              "unsup_training": unsup_counts, "distributed": dist_counts,
              "classic": classic_counts, "depthmap_eval": eval_counts,
              "bench": bench_counts, "e2e": e2e_counts}
@@ -4174,7 +4388,7 @@ def main() -> int:
             "ms", "events_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "staged_share", "launches_by_path"]
     extra = ["device_atomics", "softmin_ms", "views", "vis", "stage1",
-             "stage2", "cvp", "rect", "shapes"]
+             "stage2", "cvp", "cas", "rect", "shapes"]
     for k in kernels.values():
         k.setdefault("staged_share", None)      # kernels without footprints
     print(json.dumps({"kernels": [{k: v[k] for k in keys + extra if k in v}
@@ -4183,6 +4397,7 @@ def main() -> int:
                       "training": training, "vis_serving": vis_serving,
                       "vis_training": vis_training,
                       "cvp_serving": cvp_serving, "cvp_training": cvp_training,
+                      "cas_serving": cas_serving,
                       "rect_serving": rect_serving,
                       "reconstruction": reconstruction,
                       "unsup_training": unsup_training,

@@ -47,13 +47,14 @@ class Predictor:
         file, a JAX orbax checkpoint directory, or a logdir (its newest
         checkpoint); None for seeded random weights (seed 0; smoke and
         performance runs).
-      architecture: mvsnet | mvsnet-s | vis_mvsnet | cvp_mvsnet; read
-        from the checkpoint if None.
+      architecture: mvsnet | mvsnet-s | vis_mvsnet | cvp_mvsnet |
+        cas_mvsnet; read from the checkpoint if None.
       bf16: run the networks in bf16 (default) or f32.
       cvp_nscale: cvp_mvsnet's pyramid levels (default 4; the reference
         evaluates DTU at 5 and other scenes at 4, pipeline_utils.py:133-139).
       sweep_method: cost-volume backend (models/mvsnet.py,
-        models/vis_mvsnet.py, models/cvp_mvsnet.py); "auto" is each
+        models/vis_mvsnet.py, models/cvp_mvsnet.py,
+        models/cas_mvsnet.py); "auto" is each
         architecture's eval default (`eval_model_kwargs`: the rectified
         sweep "rect" for cvp_mvsnet).
       device: "cuda" (default; raises without a card) or "cpu".

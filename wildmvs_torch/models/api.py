@@ -37,9 +37,9 @@ def register_model(name: str):
 def build_model(architecture: str, device: str | torch.device | None = None,
                 seed: int = 0, **kwargs):
     """Build a model by the reference's architecture string (mvsnet |
-    mvsnet-s | vis_mvsnet | cvp_mvsnet) with seeded random weights, on `device` ("cuda"
-    by default; "cpu" only when asked). kwargs go to the model's
-    constructor."""
+    mvsnet-s | vis_mvsnet | cvp_mvsnet | cas_mvsnet) with seeded random
+    weights, on `device` ("cuda" by default; "cpu" only when asked). kwargs
+    go to the model's constructor."""
     dev = resolve_device(device)
     if architecture == "mvsnet":
         kwargs = {"aggregation": "variance", **kwargs}

@@ -165,9 +165,11 @@ class FeatureNet(nn.Module):
 
 class CostRegNet(nn.Module):
     """3D U-Net regularizer, [B, D, H, W, C] -> [B, D, H, W, 1]
-    (reference model.py:43-84)."""
+    (reference model.py:43-84). `prob_bias`: whether the score head has a
+    bias (MVSNet's has; CasMVSNet's, cascade-stereo module.py, has not)."""
 
-    def __init__(self, in_channels: int = 32, dtype=torch.float32):
+    def __init__(self, in_channels: int = 32, dtype=torch.float32,
+                 prob_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.conv0 = ConvBnReLU(in_channels, 8, dim=3)
@@ -180,7 +182,7 @@ class CostRegNet(nn.Module):
         self.conv7 = ConvTransposeBnReLU(64, 32)
         self.conv9 = ConvTransposeBnReLU(32, 16)
         self.conv11 = ConvTransposeBnReLU(16, 8)
-        self.prob = ScoreConv3d(8, bias=True)
+        self.prob = ScoreConv3d(8, bias=prob_bias)
 
     def forward(self, x):
         # [B, D, H, W, C] memory seen as NCDHW is channels_last_3d

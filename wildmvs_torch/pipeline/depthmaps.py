@@ -19,8 +19,10 @@ def eval_model_kwargs(architecture: str, bf16: bool = True,
     (depth resolution = image resolution / downscale). Inference defaults
     to bf16 networks. vis_mvsnet sweeps (64, 32, 16) hypotheses at interval
     scales (2, 1, 0.5) (reference pipeline_utils.py:142-144; the JAX
-    package's eval_model_kwargs, depthmaps.py:23-75). cvp_mvsnet's depth
-    is at full resolution.
+    package's eval_model_kwargs, depthmaps.py:23-75). cvp_mvsnet's and
+    cas_mvsnet's depth is at full resolution; cas_mvsnet (no JAX
+    counterpart) serves its published DTU stages, and its "auto" is the
+    exact "fused" sweep on the card, "gather" on the CPU.
 
     An explicit sweep_method wins; "auto" leaves the model's default
     (no "sweep_method" key), except for cvp_mvsnet, whose eval default is
@@ -29,7 +31,7 @@ def eval_model_kwargs(architecture: str, bf16: bool = True,
     note. vis_mvsnet with "rect" prints a note as well: its exact default
     "auto" is the per-architecture choice of the JAX package."""
     if architecture not in ("mvsnet", "mvsnet-s", "vis_mvsnet",
-                            "cvp_mvsnet"):
+                            "cvp_mvsnet", "cas_mvsnet"):
         raise ValueError(f"unknown architecture: {architecture}")
     kwargs = {} if sweep_method == "auto" else {"sweep_method": sweep_method}
     if bf16:
@@ -41,6 +43,8 @@ def eval_model_kwargs(architecture: str, bf16: bool = True,
                   "the exact sweep; pass sweep_method='fused' or 'gather' "
                   "for the exact path)", flush=True)
             kwargs["sweep_method"] = "rect"
+        return {"kwargs": kwargs, "downscale": 1}
+    if architecture == "cas_mvsnet":
         return {"kwargs": kwargs, "downscale": 1}
     if architecture == "vis_mvsnet":
         if sweep_method == "rect":
